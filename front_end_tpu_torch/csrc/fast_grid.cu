@@ -9,10 +9,14 @@
 // Block = 16x16 threads = one 16x16 tile of pooled blocks (32x32 pixels) of
 // ONE cell.  Shared memory holds the image tile with a 4-pixel halo
 // (40x40) and the thresholded pre-NMS scores with a 1-pixel halo (34x34).
-// Only subtractions, min, max and compares touch the pixel values, so the
-// result is bit-identical to the plain version in any evaluation order.
+// The segment test itself is shared with the dense kernels
+// (fast_segment.cuh); only subtractions, min, max and compares touch the
+// pixel values, so the result is bit-identical to the plain version in any
+// evaluation order.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fast_segment.cuh"
 
 namespace {
 
@@ -21,89 +25,6 @@ constexpr int TPIX = 2 * TP;           // output pixels per tile side
 constexpr int S0 = TPIX + 2;           // scores: 1-pixel NMS halo
 constexpr int IMG = S0 + 6;            // image: + 3-pixel circle halo
 constexpr int NTHREADS = TP * TP;
-
-// Circle offsets (dx, dy), y down, OpenCV makeOffsets order.
-__constant__ int8_t kC16[16][2] = {
-    {0, 3}, {1, 3}, {2, 2}, {3, 1}, {3, 0}, {3, -1}, {2, -2}, {1, -3},
-    {0, -3}, {-1, -3}, {-2, -2}, {-3, -1}, {-3, 0}, {-3, 1}, {-2, 2},
-    {-1, 3}};
-__constant__ int8_t kC12[12][2] = {
-    {0, 2}, {1, 2}, {2, 1}, {2, 0}, {2, -1}, {1, -2}, {0, -2}, {-1, -2},
-    {-2, -1}, {-2, 0}, {-2, 1}, {-1, 2}};
-__constant__ int8_t kC8[8][2] = {
-    {0, 1}, {1, 1}, {1, 0}, {1, -1}, {0, -1}, {-1, -1}, {-1, 0}, {-1, 1}};
-
-template <int N>
-__device__ __forceinline__ int cdx(int i) {
-  return N == 16 ? kC16[i][0] : (N == 12 ? kC12[i][0] : kC8[i][0]);
-}
-template <int N>
-__device__ __forceinline__ int cdy(int i) {
-  return N == 16 ? kC16[i][1] : (N == 12 ? kC12[i][1] : kC8[i][1]);
-}
-
-__host__ __device__ constexpr int floor_log2(int k) {
-  return k < 2 ? 0 : 1 + floor_log2(k / 2);
-}
-
-// max over circular starts s of min over the K-window of w[(s + j) % N]:
-// sparse-table doubling, then one overlapping combine (min is idempotent).
-template <int N, int K>
-__device__ __forceinline__ float arc_margin(float (&w)[N]) {
-  constexpr int LOG = floor_log2(K);
-#pragma unroll
-  for (int pass = 0; pass < LOG; ++pass) {
-    const int width = 1 << pass;
-    float t[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) t[i] = fminf(w[i], w[(i + width) % N]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) w[i] = t[i];
-  }
-  constexpr int REST = K - (1 << LOG);
-  if (REST > 0) {
-    float t[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) t[i] = fminf(w[i], w[(i + REST) % N]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) w[i] = t[i];
-  }
-  float best = w[0];
-#pragma unroll
-  for (int i = 1; i < N; ++i) best = fmaxf(best, w[i]);
-  return best;
-}
-
-// min over cv2's 8 quick-test pairs (k, (k + 8) mod N) of the pair max.
-template <int N>
-__device__ __forceinline__ float quick_margin(const float (&d)[N]) {
-  float m = fmaxf(d[0], d[8 % N]);
-#pragma unroll
-  for (int k = 1; k < 8; ++k) m = fminf(m, fmaxf(d[k % N], d[(k + 8) % N]));
-  return m;
-}
-
-// (detect, score) margins of the pixel at (ty, tx) of the image tile.
-template <int N, int K>
-__device__ __forceinline__ void margins(const float* tile, int ty, int tx,
-                                        float& detect, float& score) {
-  const float p = tile[ty * IMG + tx];
-  float dark[N], bright[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    dark[i] = p - tile[(ty + cdy<N>(i)) * IMG + tx + cdx<N>(i)];
-    bright[i] = -dark[i];
-  }
-  float qd = 0.f, qb = 0.f;
-  if (N != 16) {
-    qd = quick_margin<N>(dark);
-    qb = quick_margin<N>(bright);
-  }
-  const float rd = arc_margin<N, K>(dark);
-  const float rb = arc_margin<N, K>(bright);
-  score = fmaxf(rd, rb);
-  detect = N == 16 ? score : fmaxf(fminf(rd, qd), fminf(rb, qb));
-}
 
 template <int N, int K>
 __global__ void __launch_bounds__(NTHREADS)
@@ -126,11 +47,7 @@ fast_grid_kernel(const float* __restrict__ img, const float* __restrict__ thr,
   const int tid = threadIdx.y * TP + threadIdx.x;
 
   // 1. image tile, origin (y0 - 4, x0 - 4), edge-clamped reads
-  for (int i = tid; i < IMG * IMG; i += NTHREADS) {
-    const int gy = min(max(y0 - 4 + i / IMG, 0), H - 1);
-    const int gx = min(max(x0 - 4 + i % IMG, 0), W - 1);
-    s_img[i] = im[(size_t)gy * W + gx];
-  }
+  load_tile<IMG, NTHREADS>(im, s_img, y0 - 4, x0 - 4, H, W, tid);
   __syncthreads();
 
   // 2. thresholded scores of the ring, origin (y0 - 1, x0 - 1); cv2's
@@ -139,9 +56,9 @@ fast_grid_kernel(const float* __restrict__ img, const float* __restrict__ thr,
     const int ly = i / S0, lx = i % S0;
     const int gy = y0 - 1 + ly, gx = x0 - 1 + lx;
     float s = 0.f;
-    if (gy >= 3 && gy <= H - 4 && gx >= 3 && gx <= W - 4) {
+    if (fast_interior(gy, gx, H, W)) {
       float det, sc;
-      margins<N, K>(s_img, ly + 3, lx + 3, det, sc);
+      margins<N, K, IMG>(s_img, ly + 3, lx + 3, det, sc);
       const float t = th[min(gy / ch, Gr - 1) * Gc + min(gx / cw, Gc - 1)];
       s = det > t ? sc : 0.f;
     }

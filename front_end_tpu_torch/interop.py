@@ -9,6 +9,14 @@ imports JAX).  Layout of the state:
               "bits", "X", "stereo_valid", "uv4"}}
 
 — the field names of the JAX `VOState` / `FrameFeatures` / `Keypoints`.
+The windowed path crosses the same way (`window_from_jax`,
+`ba_result_from_jax`): a `WindowState` is
+
+    {"store": {"Xw", "bits", "xy", "last_seen", "valid", "meas", "vis",
+               "track_len"}, "poses", "pose_valid", "frame_idx"}
+
+and the port adds what it keeps beside those fields (the packed words of
+the store's bits; the frame index as a host integer).
 """
 from __future__ import annotations
 
@@ -17,15 +25,27 @@ import torch
 
 from front_end_tpu_torch.geometry.camera import StereoRig
 from front_end_tpu_torch.ops.grid import GridConfig
+from front_end_tpu_torch.ba.schur import BAResult
 from front_end_tpu_torch.pipeline.vo import FrameFeatures, VOConfig, VOState
+from front_end_tpu_torch.pipeline.window_vo import WindowVOConfig
 from front_end_tpu_torch.types import Keypoints, pack_bits
 from front_end_tpu_torch.utils.precision import resolve_device
+from front_end_tpu_torch.window.tracker import (LandmarkStore, TrackerConfig,
+                                                WindowState)
 
 _RIG = ("fx", "fy", "cx", "cy", "baseline", "width", "height")
 
 
 def _t(a, device, dtype=None):
     return torch.as_tensor(np.array(a), device=device, dtype=dtype)
+
+
+def _vo_config(cfg) -> VOConfig:
+    c = dict(cfg)
+    g = dict(c.pop("grid"))
+    if g.get("row_shares") is not None:
+        g["row_shares"] = tuple(float(v) for v in g["row_shares"])
+    return VOConfig(grid=GridConfig(**g), **c)
 
 
 def from_jax(rig=None, cfg=None, state=None, *, device="cuda", seed=0):
@@ -38,11 +58,7 @@ def from_jax(rig=None, cfg=None, state=None, *, device="cuda", seed=0):
     if rig is not None:
         out_rig = StereoRig.create(**{k: rig[k] for k in _RIG})
     if cfg is not None:
-        c = dict(cfg)
-        g = dict(c.pop("grid"))
-        if g.get("row_shares") is not None:
-            g["row_shares"] = tuple(float(v) for v in g["row_shares"])
-        out_cfg = VOConfig(grid=GridConfig(**g), **c)
+        out_cfg = _vo_config(cfg)
     if state is not None:
         dev = resolve_device(device)
         f32 = torch.float32
@@ -64,3 +80,48 @@ def from_jax(rig=None, cfg=None, state=None, *, device="cuda", seed=0):
             frame_idx=int(state["frame_idx"]),
             generator=torch.Generator().manual_seed(seed))
     return out_rig, out_cfg, out_state
+
+
+def window_from_jax(cfg=None, state=None, *, device="cuda"):
+    """-> (TrackerConfig | WindowVOConfig | None, WindowState | None).
+
+    cfg: the fields of a JAX `TrackerConfig`, or of a `WindowVOConfig`
+    (recognised by its `vo` and `tracker` entries; `ba_mesh` must be None,
+    the sharded BA is not ported).  state: a `WindowState` in the layout
+    of the module docstring."""
+    out_cfg = out_state = None
+    if cfg is not None:
+        c = dict(cfg)
+        if "tracker" in c:
+            if c.pop("ba_mesh", None) is not None:
+                raise NotImplementedError(
+                    "ba_mesh: the landmark-sharded BA is not ported")
+            out_cfg = WindowVOConfig(
+                vo=_vo_config(c.pop("vo")),
+                tracker=TrackerConfig(**c.pop("tracker")), **c)
+        else:
+            out_cfg = TrackerConfig(**c)
+    if state is not None:
+        dev = resolve_device(device)
+        f32, i32, b8 = torch.float32, torch.int32, torch.bool
+        st = state["store"]
+        bits = _t(st["bits"], dev, f32)
+        store = LandmarkStore(
+            Xw=_t(st["Xw"], dev, f32), bits=bits, packed=pack_bits(bits),
+            xy=_t(st["xy"], dev, f32),
+            last_seen=_t(st["last_seen"], dev, i32),
+            valid=_t(st["valid"], dev, b8), meas=_t(st["meas"], dev, f32),
+            vis=_t(st["vis"], dev, b8),
+            track_len=_t(st["track_len"], dev, i32))
+        out_state = WindowState(
+            store=store, poses=_t(state["poses"], dev, f32),
+            pose_valid=_t(state["pose_valid"], dev, b8),
+            frame_idx=int(state["frame_idx"]))
+    return out_cfg, out_state
+
+
+def ba_result_from_jax(result, *, device="cuda") -> BAResult:
+    """{"poses", "landmarks", "cost", "cost0", "rms_px"} -> BAResult."""
+    dev = resolve_device(device)
+    return BAResult(*(_t(result[f], dev, torch.float32)
+                      for f in BAResult._fields))

@@ -1,15 +1,21 @@
 """FAST corner detection, cv2-exact (counterpart of
 `front_end_tpu/ops/fast.py`).
 
-The plain dense form: every pixel's segment test as elementwise ops over
-static shifted views of one padded image.  Two OpenCV quirks are kept as
+`fast_margins` and `detect_dense` hand a float32 copy of the image to the
+kernel wrappers (`ops/kernels/fast_margins.py`, `ops/kernels/fast_detect.py`).
+As with every wrapper of the package, the CPU/card decision is the
+wrapper's alone: a CUDA tensor of any number of leading dims launches the
+kernel or raises, a CPU tensor takes the plain dense forms below
+(`fast_margins_plain`, `detect_dense_plain`), which are the kernels' plain
+twins: every pixel's segment test as elementwise ops over static shifted
+views of one padded image.  Two OpenCV quirks are kept as
 in the JAX package (see its module docstring): the quick-rejection pair
 gates of `FAST_t` for the 12- and 8-point circles, and the
 tie-annihilating 3×3 non-max suppression.  The per-pixel score is the
 margin (cv2 response + 1), so `margin > t` reproduces the detector at any
 threshold.
 
-This is also the arithmetic of the grid kernel's plain twin
+The plain forms are also the arithmetic of the grid kernel's plain twin
 (`ops/kernels/fast_grid.py`).
 """
 from __future__ import annotations
@@ -64,8 +70,26 @@ def border_mask(H: int, W: int, device=None):
 
 
 def fast_margins(img, fast_type: str = "9_16"):
-    """Dense FAST margins: (..., H, W) -> (detect_margin, score); border
-    pixels (within 3 of the edge) are 0 in both."""
+    """Dense FAST margins: (..., H, W) -> (detect_margin, score).
+
+    score[p]  = max over contiguous arcs A of length K of
+                max(min_{i in A}(c_i - p), min_{i in A}(p - c_i)), the pure
+                segment-test margin; cv2 response = score - 1.
+    detect[p] = the same, additionally gated per brightness class by cv2's
+                quick-rejection pair tests; the pixel is a cv2 corner at
+                threshold t iff detect[p] > t.  For 9_16 detect == score.
+    Border pixels (within 3 of the edge) are 0 in both."""
+    from front_end_tpu_torch.ops.kernels import fast_margins as kernel
+    return kernel.fast_margins(img.to(torch.float32), fast_type)
+
+
+def fast_score_map(img, fast_type: str = "9_16"):
+    """Pure segment-test margin map (= cv2 FAST response + 1)."""
+    return fast_margins(img, fast_type)[1]
+
+
+def fast_margins_plain(img, fast_type: str = "9_16"):
+    """The plain dense form of `fast_margins` (the margin kernel's twin)."""
     circle, K = TYPES[fast_type]
     img = img.to(torch.float32)
     n = len(circle)
@@ -127,8 +151,17 @@ def nms3x3(score):
 
 def detect_dense(img, threshold, fast_type: str = "9_16", nms: bool = True):
     """cv2-exact FAST: the response map of surviving corners (score where
-    corner, else 0).  `threshold` is a scalar or a per-pixel map."""
-    detect, score = fast_margins(img, fast_type)
+    corner, else 0); corners = map > 0.  `threshold` is a scalar or a
+    per-pixel map (the adaptive grid controller's threshold image)."""
+    from front_end_tpu_torch.ops.kernels import fast_detect as kernel
+    return kernel.fast_detect(img.to(torch.float32), threshold, fast_type,
+                              nms)
+
+
+def detect_dense_plain(img, threshold, fast_type: str = "9_16",
+                       nms: bool = True):
+    """The plain dense form of `detect_dense` (the detect kernel's twin)."""
+    detect, score = fast_margins_plain(img, fast_type)
     t = torch.as_tensor(threshold, dtype=torch.float32, device=detect.device)
     s = torch.where(detect > t, score, torch.zeros_like(score))
     return nms_cv2(s) if nms else s

@@ -4,6 +4,9 @@ Images are (..., H, W) float32 in [0, 255]; keypoints are (x=col, y=row).
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -46,3 +49,79 @@ def box_blur(img, size: int):
     img = img.to(torch.float32)
     s = _box1d(_box1d(img, size, img.ndim - 1), size, img.ndim - 2)
     return s * (1.0 / (size * size))   # the scalar rounds to float32 first
+
+
+def _sep_conv(img, kx, ky):
+    """Separable 2-D correlation with edge padding, (..., H, W): shift and
+    accumulate over pad-once views, taps added left to right (the JAX
+    package's order, `image.py:52-63`)."""
+    img = img.to(torch.float32)
+    rx, ry = len(kx) // 2, len(ky) // 2
+    vx = shift_views(img, 0, rx)
+    out = None
+    for i in range(len(kx)):
+        term = float(kx[i]) * vx(0, i - rx)
+        out = term if out is None else out + term
+    vy = shift_views(out, ry, 0)
+    acc = None
+    for j in range(len(ky)):
+        term = float(ky[j]) * vy(j - ry, 0)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def gaussian_kernel(sigma: float, radius: int | None = None) -> np.ndarray:
+    if radius is None:
+        radius = max(1, int(3.0 * sigma + 0.5))
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img, sigma: float, radius: int | None = None):
+    k = gaussian_kernel(sigma, radius)
+    return _sep_conv(img, k, k)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of `jax.image.resize(method="linear")`
+    along one axis, computed in float32 step by step as JAX does: a
+    triangle kernel, widened by 1/scale when shrinking (antialias), columns
+    normalised to sum 1, samples outside the input zeroed.  The sample
+    positions are formed with one rounding (multiply-add), as the compiled
+    JAX function forms them; the weights then agree with JAX's to one unit
+    in the last place."""
+    f32 = np.float32
+    inv_scale = 1.0 / (n_out / n_in)              # Python floats, as in JAX
+    kernel_scale = max(f32(inv_scale), f32(1.0))
+    centres = np.arange(n_out, dtype=f32) + f32(0.5)
+    sample_f = (centres.astype(np.float64) * np.float64(f32(inv_scale))
+                - 0.5).astype(f32)
+    x = np.abs(sample_f[None, :]
+               - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(0, keepdims=True)                # row after row, float32
+    w = np.where(np.abs(total) > f32(1000.0 * float(np.finfo(f32).eps)),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= f32(-0.5)) & (sample_f <= f32(n_in - 0.5))
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_linear(img, h: int, w: int):
+    """(H, W) -> (h, w), the result of `jax.image.resize(img, (h, w),
+    method="linear")`: antialiased when shrinking.  The per-axis weight
+    matrices are JAX's; they are applied by two float32 matrix products
+    (under the callers' precision pin), whose summation order is the
+    library's, so the result agrees with JAX's to a few units in the last
+    place, not bit for bit."""
+    img = img.to(torch.float32)
+    H, W = img.shape[-2:]
+    out = img
+    if h != H:
+        wh = torch.as_tensor(_resize_weights_np(H, h), device=img.device)
+        out = wh.T @ out
+    if w != W:
+        ww = torch.as_tensor(_resize_weights_np(W, w), device=img.device)
+        out = out @ ww
+    return out

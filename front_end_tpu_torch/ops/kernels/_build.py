@@ -3,8 +3,9 @@
 Each source is compiled by `nvcc -shared` into its own library with a
 plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with `ctypes`.  Libraries land in `front_end_tpu_torch/_build/`,
-named by a digest of the source and flags, so an edited source rebuilds
-and an unchanged one is reused.  `build(...)` starts one `nvcc` per
+named by a digest of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  `build(...)` starts one `nvcc` per
 source, all at once, and waits for every one of them.
 """
 from __future__ import annotations
@@ -38,8 +39,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha1(" ".join(FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -55,7 +57,8 @@ def build(*names: str) -> dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT), tmp)
     failed = []

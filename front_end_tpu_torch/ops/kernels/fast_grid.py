@@ -84,11 +84,13 @@ def pool_cells(smap, cell):
 
 
 def plain(imgs, thresholds, cell, fast_type: str = "9_16"):
-    """The plain PyTorch twin: dense detect, then per-cell pooling."""
+    """The plain PyTorch twin: the plain dense detect (never the detect
+    kernel, so the twin stays an independent check on the card), then
+    per-cell pooling."""
     Gr, Gc, ch, cw = cell
     H, W = imgs.shape[-2:]
     tmaps = threshold_map(thresholds, H, W, ch, cw)
-    smap = fast_mod.detect_dense(imgs, tmaps, fast_type, nms=True)
+    smap = fast_mod.detect_dense_plain(imgs, tmaps, fast_type, nms=True)
     return pool_cells(smap, cell)
 
 

@@ -1,8 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's `vo_step` goes, on one CUDA card.
+"""Where the time of the PyTorch port's `vo_step`, or of its
+`window_vo_step`, goes, on one CUDA card.
 
-    python3 profile_torch_vo.py [--frames 20]
+    python3 profile_torch_vo.py [--frames 20] [--path vo|window]
 
+`--path window` drives `window_vo.run_sequence` with
+`WindowVOConfig.create` defaults and adds `tracker.update` and
+`tracker.run_window_ba` to the stages (a stage called inside another
+stage, as the tracker's association is, counts once, with the outer one).
 On the benchmark configuration at KITTI 376×1241 (the one `chip_smoke.py`
 drives) it prints:
   1. the card's name and power limit;
@@ -32,12 +37,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from front_end_tpu_torch.geometry.camera import kitti_rig  # noqa: E402
 from front_end_tpu_torch.motion import lm, ransac  # noqa: E402
 from front_end_tpu_torch.ops import brief, grid, match  # noqa: E402
-from front_end_tpu_torch.pipeline import vo  # noqa: E402
+from front_end_tpu_torch.pipeline import vo, window_vo  # noqa: E402
 from front_end_tpu_torch.sim.sequence import make_sequence  # noqa: E402
+from front_end_tpu_torch.window import tracker  # noqa: E402
 
 STAGES = [(grid, "detect_pair"), (brief, "smooth"), (brief, "describe_pair"),
           (match, "stereo_match_live"), (match, "interframe_match"),
           (ransac, "rigid_ransac"), (lm, "refine_motion")]
+WINDOW_STAGES = [(tracker, "update"), (tracker, "run_window_ba")]
 
 
 def bench_cfg():
@@ -48,11 +55,16 @@ def bench_cfg():
         max_disparity=192.0, min_track_inliers=12)
 
 
+def path_module(cfg):
+    return window_vo if isinstance(cfg, window_vo.WindowVOConfig) else vo
+
+
 def run(L, R, rig, cfg):
-    s = vo.init_state(rig, cfg, seed=0, device="cuda")
+    mod = path_module(cfg)
+    s = mod.init_state(rig, cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    vo.run_sequence(s, L, R, rig, cfg)
+    mod.run_sequence(s, L, R, rig, cfg)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / len(L)
 
@@ -60,6 +72,7 @@ def run(L, R, rig, cfg):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--path", choices=("vo", "window"), default="vo")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_vo: needs a CUDA card", file=sys.stderr)
@@ -69,6 +82,12 @@ def main() -> int:
                           text=True).stdout.strip()
     print(f"card: {card}")
     rig, cfg = kitti_rig(), bench_cfg()
+    stages = list(STAGES)
+    if args.path == "window":
+        cfg = window_vo.WindowVOConfig.create(cfg)
+        stages += WINDOW_STAGES
+    mod = path_module(cfg)
+    print(f"path: {args.path} ({mod.__name__}.run_sequence)")
     lefts, rights = make_sequence(args.frames, rig.height, rig.width)
     L = torch.as_tensor(lefts).cuda()
     R = torch.as_tensor(rights).cuda()
@@ -81,29 +100,36 @@ def main() -> int:
     # ---- serialized per-stage breakdown ------------------------------
     spent = defaultdict(float)
     saved = []
-    for mod, name in STAGES:
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
+    depth = [0]
+    for smod, name in stages:
+        fn = getattr(smod, name)
+        saved.append((smod, name, fn))
 
         def timed(*a, _fn=fn, _name=name, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[_name] += time.perf_counter() - t0
+            if depth[0]:                 # inside another stage: its time
+                return _fn(*a, **k)
+            depth[0] += 1
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                spent[_name] += time.perf_counter() - t0
+            finally:
+                depth[0] -= 1
             return out
-        setattr(mod, name, functools.wraps(fn)(timed))
+        setattr(smod, name, functools.wraps(fn)(timed))
     try:
         run(L[:2], R[:2], rig, cfg)
         spent.clear()
         total = run(L, R, rig, cfg)
     finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+        for smod, name, fn in saved:
+            setattr(smod, name, fn)
     n = len(L)
     staged = 0.0
     print(f"serialized frame: {total:.3f} ms/frame")
-    for _, name in STAGES:
+    for _, name in stages:
         ms = spent[name] * 1e3 / n
         staged += ms
         print(f"  {name:<20s} {ms:8.3f} ms/frame")
@@ -113,12 +139,12 @@ def main() -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     k = 5
-    s = vo.init_state(rig, cfg, seed=0, device="cuda")
-    s, _ = vo.run_sequence(s, L[:2], R[:2], rig, cfg)
+    s = mod.init_state(rig, cfg, seed=0, device="cuda")
+    s, _ = mod.run_sequence(s, L[:3], R[:3], rig, cfg)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        vo.run_sequence(s, L[2:2 + k], R[2:2 + k], rig, cfg)
+        mod.run_sequence(s, L[3:3 + k], R[3:3 + k], rig, cfg)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()

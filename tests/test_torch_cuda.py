@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from front_end_tpu_torch.ops import brief as tbrief
-from front_end_tpu_torch.ops.kernels import brief_planes, fast_grid, match_reduce
+from front_end_tpu_torch.ops import fast as tfast
+from front_end_tpu_torch.ops.kernels import (brief_planes, fast_detect,
+                                             fast_grid, fast_margins,
+                                             match_reduce)
 from front_end_tpu_torch.types import pack_bits
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +56,101 @@ def test_fast_grid_kernel_equals_plain(dev, fast_type, shape):
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
     assert int(ref[2].sum()) > 100
+
+
+# odd KITTI width, a shape smaller than one 32x32 tile, ORB's smallest
+# level, a batch of one and of two, and a (T, 2, H, W) stack whose leading
+# dims the wrappers flatten into the batch
+DENSE_SHAPES = [(2, 376, 1241), (1, 23, 31), (64, 64), (2, 7, 9), (97, 130),
+                (3, 2, 40, 50)]
+
+
+def _dense_images(shape, fast_type):
+    block = 1 if fast_type == "5_8" else 6
+    H, W = shape[-2:]
+    lead = shape[:-2]
+    n = int(np.prod(lead)) if lead else 1
+    imgs = np.stack([image(H, W, seed=10 + s, block=block)
+                     for s in range(n)])
+    return torch.as_tensor(imgs.reshape(shape))
+
+
+@pytest.mark.parametrize("fast_type", ["9_16", "7_12", "5_8"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_fast_margins_kernel_equals_plain(dev, fast_type, shape):
+    img = _dense_images(shape, fast_type)
+    before = fast_margins.launches
+    got = tfast.fast_margins(img.to(dev), fast_type)
+    torch.cuda.synchronize()
+    assert fast_margins.launches == before + 1
+    ref = fast_margins.plain(img, fast_type)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and torch.equal(g.cpu(), r)
+    if min(shape[-2:]) > 20:
+        assert int((ref[0] > 10).sum()) > 20
+
+
+@pytest.mark.parametrize("threshold", ["scalar", "map", "shared_map"])
+@pytest.mark.parametrize("nms", [True, False])
+@pytest.mark.parametrize("fast_type", ["9_16", "7_12", "5_8"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_fast_detect_kernel_equals_plain(dev, fast_type, nms, threshold,
+                                         shape):
+    img = _dense_images(shape, fast_type)
+    rs = np.random.RandomState(5)
+    if threshold == "scalar":
+        thr_cpu = thr_dev = 12.0
+    else:
+        tshape = shape if threshold == "map" else shape[-2:]
+        thr_cpu = torch.as_tensor(
+            rs.randint(4, 30, tshape).astype(np.float32))
+        thr_dev = thr_cpu.to(dev)
+    before = fast_detect.launches
+    got = tfast.detect_dense(img.to(dev), thr_dev, fast_type, nms)
+    torch.cuda.synchronize()
+    assert fast_detect.launches == before + 1
+    ref = fast_detect.plain(img, thr_cpu, fast_type, nms)
+    assert got.shape == ref.shape and torch.equal(got.cpu(), ref)
+    if min(shape[-2:]) > 60:
+        assert int((ref > 0).sum()) > 10
+
+
+def test_dense_kernels_take_strided_input_and_reject_other_types(dev):
+    img = _dense_images((2, 80, 120), "9_16").to(dev)
+    view = img[:, ::2, 1::3]                      # non-contiguous
+    assert torch.equal(fast_detect.fast_detect(view, 9.0),
+                       fast_detect.plain(view.contiguous(), 9.0))
+    with pytest.raises(TypeError):
+        fast_detect.fast_detect(img.double(), 9.0)
+    with pytest.raises(TypeError):
+        fast_margins.fast_margins(img.to(torch.uint8))
+    with pytest.raises(ValueError):
+        fast_detect.fast_detect(img, torch.full((80, 120), 9.0))  # CPU map
+
+
+def test_match_reduce_at_the_tracker_association_shape(dev):
+    """2304 frame features against a 4608-slot landmark store, roi gate:
+    the third match launch of a windowed frame."""
+    nq, nt, D = 2304, 4608, 256
+    rs = np.random.RandomState(11)
+    bt = (rs.uniform(size=(nt, D)) > 0.5).astype(np.float32)
+    perm = rs.randint(0, nt, nq)
+    bq = np.abs(bt[perm] - (rs.uniform(size=(nq, D)) < 0.04))
+    xyt = np.stack([rs.uniform(30, 1200, nt), rs.uniform(30, 340, nt)], -1)
+    xyq = xyt[perm] + rs.normal(0, 5, (nq, 2))
+    args = [pack_bits(torch.as_tensor(bq.astype(np.float32))),
+            pack_bits(torch.as_tensor(bt)),
+            torch.as_tensor(xyq, dtype=torch.float32),
+            torch.as_tensor(xyt, dtype=torch.float32),
+            torch.as_tensor(rs.uniform(size=nq) > 0.1),
+            torch.as_tensor(rs.uniform(size=nt) > 0.4)]
+    got = match_reduce.match_reduce(*[a.to(dev) for a in args], mode="roi",
+                                    p1=100.0)
+    torch.cuda.synchronize()
+    ref = match_reduce.plain(*args, "roi", p1=100.0)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert int((ref[0] < 64).sum()) > 1000
 
 
 def _ints(x):

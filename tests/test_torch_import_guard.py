@@ -35,8 +35,23 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 25, out.stdout
+    assert int(count) >= 41, out.stdout
     assert bad == "[]", bad
+
+
+def test_every_module_of_the_port_is_walked():
+    """The probe above imports what `pkgutil` finds; hold that it finds
+    the service and windowed modules and both new kernel wrappers."""
+    import pkgutil
+
+    import front_end_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for mod in ("features", "services", "ops.orb", "ops.brisk",
+                "ops.kernels.fast_detect", "ops.kernels.fast_margins",
+                "pipeline.control", "pipeline.window_vo", "window.tracker",
+                "ba.factors", "ba.schur"):
+        assert f"front_end_tpu_torch.{mod}" in names, mod
 
 
 def _last_json(stdout):
