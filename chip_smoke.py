@@ -7,12 +7,16 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from `front_end_tpu_torch/csrc/` (one
+  2. build the six CUDA kernels from `front_end_tpu_torch/csrc/` (one
      nvcc per source, all at once) and hold each against its plain PyTorch
      twin — exact equality — at the shapes its path gives it, timing
      kernel and twin with CUDA events: the grid, BRIEF and match kernels
      at the VO path's shapes (KITTI 376×1241 stereo pair, 2304 keypoints,
-     256 bits); the dense detect and margin kernels at the service path's
+     256 bits; the keypoint BRIEF kernel also at 128 and 512 bits and
+     against the gathered dense planes; the match kernel in both of its
+     variants; the dense plane kernel, which no path launches any more,
+     against its twin all the same); the dense detect and margin kernels
+     at the service path's
      (the KITTI pair for all three circle types, NMS on and off, scalar
      and per-pixel threshold; the margin kernel also on the one image the
      sweep launches it at; the detect kernel also on every level shape of
@@ -21,7 +25,8 @@ Phases, each of which exits non-zero on failure:
      width with the benchmark configuration (20, not the 40 of the first
      version of this script, so that the whole script keeps its run time
      now that it drives three paths), launch counters reset just before
-     and read just after (1 grid, 1 BRIEF, 2 match launches per frame),
+     and read just after (1 grid, 1 keypoint BRIEF, 2 match launches per
+     frame, no dense plane launch),
      trajectory checked against the sequence's known motion, ms/frame;
   4. the first 3 frames again on the CPU (plain twins, same RANSAC seed):
      identical detections, keypoints, stereo and track counts, poses
@@ -35,8 +40,9 @@ Phases, each of which exits non-zero on failure:
      where that is a theorem, everything held against the same calls on
      the CPU; ms per swept ID per family;
   6. the windowed path: `window_vo.run_sequence` over 40 frames with
-     `WindowVOConfig.create` defaults (1 grid, 1 BRIEF, 3 match launches
-     per frame), BA on every frame once the window is full, trajectory
+     `WindowVOConfig.create` defaults (1 grid, 1 keypoint BRIEF, 3 match
+     launches per frame), BA on every frame once the window is full,
+     trajectory
      within 5 % of the true motion, ms/frame; the match kernel held
      against its twin at the tracker's 2304 × 4608 association; first 3
      frames against the CPU;
@@ -47,6 +53,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +74,16 @@ POSE_TOL = 1e-4      # card vs CPU: float32 geometry summed in another order
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 POPC_S = 16 * 132 * 1.98e9
+# a compare, min or logic operation is one result per lane and clock, half
+# the float32 figure, which counts a fused multiply-add as two
+CORE_OPS_S = F32_OPS_S / 2
+# no 1-bit tensor-core rate is published for the H100; the int8 rate is the
+# nearest published one and stands in for it
+TENSOR_INT_OPS_S = 1979e12
+# gate, key and min operations per pair that the match kernel leaves on the
+# CUDA cores once the popcounts run on the tensor cores
+MATCH_CORE_OPS = 12
+OFF_PATH = {"brief_planes"}   # kept, checked and timed; launched by no path
 SLEEP_CYCLES_S = 1.98e9   # `torch.cuda._sleep` spins this many clocks a second
 
 
@@ -179,9 +196,10 @@ def main() -> int:
     from front_end_tpu_torch.geometry.camera import kitti_rig
     from front_end_tpu_torch.ops import brief, brisk, grid, image, match, orb
     from front_end_tpu_torch.ops import fast as fast_ops
-    from front_end_tpu_torch.ops.kernels import (_build, brief_planes,
-                                                 fast_detect, fast_grid,
-                                                 fast_margins, match_reduce)
+    from front_end_tpu_torch.ops.kernels import (_build, brief_keypoints,
+                                                 brief_planes, fast_detect,
+                                                 fast_grid, fast_margins,
+                                                 match_reduce)
     from front_end_tpu_torch.pipeline import vo, window_vo
     from front_end_tpu_torch.sim.sequence import make_sequence
     from front_end_tpu_torch.utils.precision import pinned_f32
@@ -194,14 +212,18 @@ def main() -> int:
 
     # ---- build, in parallel ---------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build("fast_grid", "brief_planes", "match_reduce",
-                        "fast_detect", "fast_margins")
+    libs = _build.build("fast_grid", "brief_planes", "brief_keypoints",
+                        "match_reduce", "fast_detect", "fast_margins")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, path in libs.items():
         log = path.with_suffix(".log")
-        for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        text = log.read_text() if log.exists() else ""
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill", text)]
+        if regs:
+            print(f"  ptxas {name}: {len(regs)} kernels, at most "
+                  f"{max(regs)} registers, {max(spills, default=0)} bytes "
+                  f"spilled")
 
     rig = kitti_rig()
     cfg = vo.VOConfig(
@@ -213,6 +235,7 @@ def main() -> int:
     H, W = rig.height, rig.width
     kernels = []
     modules = {"fast_grid": fast_grid, "brief_planes": brief_planes,
+               "brief_keypoints": brief_keypoints,
                "match_reduce": match_reduce, "fast_detect": fast_detect,
                "fast_margins": fast_margins}
     by_path = {}
@@ -223,6 +246,27 @@ def main() -> int:
 
     def read_counts():
         return {k: m.launches for k, m in modules.items()}
+
+    def match_case(args, kw, what):
+        """Both variants of the match kernel against the twin, exactly;
+        device ms of each and of the twin."""
+        ref = match_reduce.plain(*args, **kw)
+        out = {"err": 0.0}
+        for variant in match_reduce.VARIANTS:
+            got = match_reduce.match_reduce(*args, variant=variant, **kw)
+            torch.cuda.synchronize()
+            check(all(same(torch, g, r) for g, r in zip(got, ref)),
+                  f"match_reduce ({what}, {variant}) != plain")
+            out["err"] = max(out["err"], max_abs_err(torch, got, ref))
+            out[variant] = cuda_ms(torch, lambda: match_reduce.match_reduce(
+                *args, variant=variant, **kw), 100)
+        out["plain"] = cuda_ms(torch,
+                               lambda: match_reduce.plain(*args, **kw), 10)
+        print(f"kernel match_reduce ({what}): exact; tensor cores "
+              f"{out['mma'] * 1e3:.1f} us, popcount variant "
+              f"{out['popc'] * 1e3:.1f} us, plain {out['plain'] * 1e3:.1f} us",
+              flush=True)
+        return out
 
     with pinned_f32():
         # ---- phase 2: each kernel against its plain twin ------------------
@@ -285,6 +329,54 @@ def main() -> int:
         kr = kr.replace(valid=kr.valid & brief.valid_mask(kr.xy, W, H))
         dl, dr = brief.describe_pair(sm[0], sm[1], kl.xy, kr.xy,
                                      cfg.desc_bytes)
+
+        # BRIEF at frame 0's 2 x 2304 keypoints (padding rows included):
+        # against its twin and against the gathered dense planes
+        kxy = torch.stack([kl.xy, kr.xy])
+        check(kxy.shape == (2, cfg.grid.capacity, 2),
+              f"keypoint shape {tuple(kxy.shape)}")
+        bk = {}
+        for n_bits in (8 * cfg.desc_bytes, 128, 512):
+            table = brief.table_on(n_bits, 7, dev)
+            got = brief_keypoints.brief_keypoints(sm, kxy, table)
+            ref = brief_keypoints.plain(sm, kxy, table)
+            planes = brief_planes.brief_planes(sm, brief.brief_pattern(n_bits))
+            dense = torch.stack([brief.gather_words(planes[b], kxy[b]).packed
+                                 for b in range(2)])
+            torch.cuda.synchronize()
+            check(same(torch, got, ref),
+                  f"brief_keypoints ({n_bits} bits) != plain")
+            check(same(torch, got, dense),
+                  f"brief_keypoints ({n_bits} bits) != gathered dense planes")
+            bk[n_bits] = (
+                cuda_ms(torch, lambda: brief_keypoints.brief_keypoints(
+                    sm, kxy, table), 100),
+                max(max_abs_err(torch, [got], [ref]),
+                    max_abs_err(torch, [got], [dense])),
+                table.numel() * 4 + got.numel() * 4)
+            del planes
+        n_bits = 8 * cfg.desc_bytes
+        table = brief.table_on(n_bits, 7, dev)
+        check(same(torch, torch.stack([dl.packed, dr.packed]),
+                   brief_keypoints.brief_keypoints(sm, kxy, table)),
+              "describe_pair != brief_keypoints")
+        plain_ms = cuda_ms(torch, lambda: brief_keypoints.plain(
+            sm, kxy, table), 10)
+        by = sm.numel() * 4 + kxy.numel() * 4 + bk[n_bits][2]
+        ops = kxy.shape[0] * kxy.shape[1] * n_bits
+        kernels.append(dict(
+            name="brief_keypoints", route="cuda",
+            source="front_end_tpu_torch/csrc/brief_keypoints.cu",
+            replaces="front_end_tpu/ops/pallas/brief_kernel.py:76",
+            max_abs_err=max(v[1] for v in bk.values()), ms=bk[n_bits][0],
+            plain_ms=plain_ms, ms_128=bk[128][0], ms_512=bk[512][0],
+            bytes=by, ops=ops, bound_s=(by / HBM_BYTES_S, ops / F32_OPS_S),
+            library_ms=None))
+        print(f"kernel brief_keypoints: exact (twin and gathered dense "
+              f"planes; 128, 256, 512 bits); {bk[n_bits][0] * 1e3:.1f} us vs "
+              f"plain {plain_ms * 1e3:.1f} us at {n_bits} bits; "
+              f"{bk[128][0] * 1e3:.1f} us at 128, {bk[512][0] * 1e3:.1f} us "
+              f"at 512", flush=True)
         s2, _ = vo.vo_step(s1, lefts[1], rights[1], rig, cfg)
         cases = {
             "stereo": ((dl.packed, dr.packed, kl.xy, kr.xy, kl.valid,
@@ -298,35 +390,29 @@ def main() -> int:
         for mode, (args, kw) in cases.items():
             check(args[0].shape == (cfg.grid.capacity, 8),
                   f"match input shape {tuple(args[0].shape)}")
-            got = match_reduce.match_reduce(*args, **kw)
-            ref = match_reduce.plain(*args, **kw)
-            torch.cuda.synchronize()
-            check(all(same(torch, g, r) for g, r in zip(got, ref)),
-                  f"match_reduce ({mode}) != plain")
-            check(int((got[0] < match.BIG / 2).sum()) > 100,
+            times[mode] = match_case(args, kw, mode)
+            check(int((match_reduce.match_reduce(*args, **kw)[0]
+                       < match.BIG / 2).sum()) > 100,
                   f"match_reduce ({mode}): too few ungated rows")
-            err = max_abs_err(torch, got, ref)
-            times[mode] = (
-                cuda_ms(torch, lambda: match_reduce.match_reduce(*args, **kw),
-                        100),
-                cuda_ms(torch, lambda: match_reduce.plain(*args, **kw), 10),
-                err)
-            print(f"kernel match_reduce ({mode}): exact; "
-                  f"{times[mode][0] * 1e3:.1f} us vs plain "
-                  f"{times[mode][1] * 1e3:.1f} us", flush=True)
         nq, nw = cases["stereo"][0][0].shape
         nt = cases["stereo"][0][1].shape[0]
-        popc = nq * nt * nw
+        pairs = nq * nt
         by = (nq + nt) * (nw * 4 + 8 + 1) + nq * 12 + nt * 8
+        # the popcounts run on the tensor cores (an AND and a count per
+        # bit); the CUDA cores keep the gate, key and min operations
+        ops = pairs * (2 * 32 * nw + MATCH_CORE_OPS)
+        ops_s = (pairs * 2 * 32 * nw / TENSOR_INT_OPS_S
+                 + pairs * MATCH_CORE_OPS / CORE_OPS_S)
         kernels.append(dict(
             name="match_reduce", route="cuda",
             source="front_end_tpu_torch/csrc/match_reduce.cu",
             replaces="front_end_tpu/ops/pallas/match_kernel.py:110",
-            max_abs_err=max(v[2] for v in times.values()),
-            ms=times["stereo"][0], plain_ms=times["stereo"][1],
-            ms_roi=times["roi"][0], plain_ms_roi=times["roi"][1],
-            bytes=by, ops=popc, bound_s=(by / HBM_BYTES_S, popc / POPC_S),
-            library_ms=None))
+            max_abs_err=max(v["err"] for v in times.values()),
+            ms=times["stereo"]["mma"], plain_ms=times["stereo"]["plain"],
+            ms_roi=times["roi"]["mma"], plain_ms_roi=times["roi"]["plain"],
+            ms_popc=times["stereo"]["popc"], ms_roi_popc=times["roi"]["popc"],
+            bytes=by, ops=ops, bound_s=(by / HBM_BYTES_S, ops_s),
+            popcount_bound_ms=pairs * nw / POPC_S * 1e3, library_ms=None))
 
         # ---- the dense FAST kernels at the service path's shapes -------
         img0 = imgs[0].contiguous()
@@ -433,9 +519,9 @@ def main() -> int:
         state, outs = vo.run_sequence(state, L, R, rig, cfg)
         torch.cuda.synchronize()
         launches = by_path["vo"] = read_counts()
-        expect = {"fast_grid": FRAMES, "brief_planes": FRAMES,
-                  "match_reduce": 2 * FRAMES, "fast_detect": 0,
-                  "fast_margins": 0}
+        expect = {"fast_grid": FRAMES, "brief_planes": 0,
+                  "brief_keypoints": FRAMES, "match_reduce": 2 * FRAMES,
+                  "fast_detect": 0, "fast_margins": 0}
         check(launches == expect, f"launches {launches}, want {expect}")
         poses = outs.pose.cpu()
         check(bool(torch.isfinite(poses).all()), "non-finite pose")
@@ -652,7 +738,8 @@ def main() -> int:
         torch.cuda.synchronize()
         by_path["service"] = read_counts()
         expect = {"fast_margins": want_margins, "fast_detect": want_detect,
-                  "fast_grid": 4, "brief_planes": 2, "match_reduce": 2}
+                  "fast_grid": 4, "brief_planes": 0, "brief_keypoints": 2,
+                  "match_reduce": 2}
         check(by_path["service"] == expect,
               f"service launches {by_path['service']}, want {expect}")
 
@@ -667,9 +754,9 @@ def main() -> int:
         ws, wouts = window_vo.run_sequence(ws, LW, RW, rig, wcfg)
         torch.cuda.synchronize()
         by_path["window"] = read_counts()
-        expect = {"fast_grid": n_w, "brief_planes": n_w,
-                  "match_reduce": 3 * n_w, "fast_detect": 0,
-                  "fast_margins": 0}
+        expect = {"fast_grid": n_w, "brief_planes": 0,
+                  "brief_keypoints": n_w, "match_reduce": 3 * n_w,
+                  "fast_detect": 0, "fast_margins": 0}
         check(by_path["window"] == expect,
               f"windowed launches {by_path['window']}, want {expect}")
         ran = wouts.ba_ran.cpu().tolist()
@@ -706,23 +793,13 @@ def main() -> int:
         check(args[0].shape == (2304, 8) and args[1].shape == (4608, 8),
               f"tracker match shapes {tuple(args[0].shape)}, "
               f"{tuple(args[1].shape)}")
-        got = match_reduce.match_reduce(*args, **kw)
-        ref = match_reduce.plain(*args, **kw)
-        torch.cuda.synchronize()
-        check(all(same(torch, g, r) for g, r in zip(got, ref)),
-              "match_reduce (tracker association) != plain")
-        check(int((got[0] < 32).sum()) > 1000,
-              "match_reduce (tracker association): too few close rows")
+        tr = match_case(args, kw, "tracker association, 2304 x 4608")
+        check(int((match_reduce.match_reduce(*args, **kw)[0] < 32).sum())
+              > 1000, "match_reduce (tracker association): too few close rows")
         mk = [k for k in kernels if k["name"] == "match_reduce"][0]
-        mk["max_abs_err"] = max(mk["max_abs_err"],
-                                max_abs_err(torch, got, ref))
-        mk["ms_tracker"] = cuda_ms(
-            torch, lambda: match_reduce.match_reduce(*args, **kw), 100)
-        mk["plain_ms_tracker"] = cuda_ms(
-            torch, lambda: match_reduce.plain(*args, **kw), 10)
-        print(f"kernel match_reduce (tracker association, 2304 x 4608): "
-              f"exact; {mk['ms_tracker'] * 1e3:.1f} us vs plain "
-              f"{mk['plain_ms_tracker'] * 1e3:.1f} us", flush=True)
+        mk["max_abs_err"] = max(mk["max_abs_err"], tr["err"])
+        mk["ms_tracker"], mk["ms_tracker_popc"] = tr["mma"], tr["popc"]
+        mk["plain_ms_tracker"] = tr["plain"]
 
         timed = []
         for _ in range(3):
@@ -768,7 +845,10 @@ def main() -> int:
             launches_by_path={p: c[name] for p, c in by_path.items()},
             bound_ms=max(by_s, ops_s) * 1e3,
             bound_by="bytes" if by_s >= ops_s else "operations"))
-        check(line[-1]["launches"] > 0, f"{name} was never launched")
+        if name in OFF_PATH:
+            check(line[-1]["launches"] == 0, f"{name} is launched by a path")
+        else:
+            check(line[-1]["launches"] > 0, f"{name} was never launched")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,13 @@
 
 The image is box-smoothed once (9×9), then each bit compares two samples
 of a fixed Gaussian pair pattern (seed 7, PATCH 48 — the JAX package's
-table, generated the same way).  `describe_dense` evaluates every pattern
-pair at every pixel as packed bitplanes (`ops/kernels/brief_planes.py`,
-the CUDA kernel on the card) and gathers n_bits/32 words per keypoint;
-`describe` is the per-keypoint gather form.  Both give the same bits away
-from the border, which `valid_mask` excludes.
+table, generated the same way).  `describe_dense` and `describe_pair`
+evaluate the pattern at the keypoints (`ops/kernels/brief_keypoints.py`,
+the CUDA kernel on the card) and give exactly the words that gathering
+the dense bitplanes at the keypoints gives, the border included; the
+dense form is `ops/kernels/brief_planes.py` and `gather_words` reads it;
+`describe` is the per-keypoint gather form in unpacked bits.  All give
+the same bits.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from front_end_tpu_torch.ops import image as image_ops
-from front_end_tpu_torch.ops.kernels import brief_planes
+from front_end_tpu_torch.ops.kernels import brief_keypoints
 from front_end_tpu_torch.types import Descriptors, unpack_bits
 
 PATCH = 48            # sampling window (OpenCV BRIEF: 48+9 borders)
@@ -37,13 +39,16 @@ def brief_pattern(n_bits: int, patch: int = PATCH, seed: int = 7):
     return _brief_pattern_np(n_bits, patch, seed)
 
 
+@functools.lru_cache(maxsize=None)
+def table_on(n_bits: int, seed: int, device: torch.device):
+    """The keypoint kernel's sample table on `device`, made once per
+    (bits, seed, device): the kernel takes it by pointer."""
+    return brief_keypoints.sample_table(
+        brief_pattern(n_bits, seed=seed)).to(device)
+
+
 def smooth(img):
     return image_ops.box_blur(img.to(torch.float32), SMOOTH)
-
-
-def _keypoint_pixels(xy, H: int, W: int):
-    c = torch.round(xy).to(torch.int64)
-    return c[:, 0].clamp(0, W - 1), c[:, 1].clamp(0, H - 1)
 
 
 def describe(img_smooth, xy, n_bytes: int = 16, *, pattern_seed: int = 7
@@ -63,28 +68,42 @@ def describe(img_smooth, xy, n_bytes: int = 16, *, pattern_seed: int = 7
 def gather_words(planes, xy) -> Descriptors:
     """(n_words, H, W) bitplanes -> descriptors at (N, 2) keypoints."""
     n_words, H, W = planes.shape
-    px, py = _keypoint_pixels(xy, H, W)
+    px, py = brief_keypoints.keypoint_pixels(xy, H, W)
     words = planes.view(torch.int32).reshape(n_words, -1)[:, py * W + px]
     packed = words.T.contiguous().view(torch.uint32)
     return Descriptors(bits=unpack_bits(packed), packed=packed)
 
 
+def _at_keypoints(imgs, xy, n_bytes: int, seed: int):
+    packed = brief_keypoints.brief_keypoints(
+        imgs.to(torch.float32), xy.to(torch.float32),
+        table_on(8 * n_bytes, seed, imgs.device))
+    return [Descriptors(bits=unpack_bits(p), packed=p) for p in packed]
+
+
 def describe_dense(img_smooth, xy, n_bytes: int = 16, *,
                    pattern_seed: int = 7) -> Descriptors:
-    """Dense-bitplane BRIEF for one (H, W) pre-smoothed image."""
-    planes = brief_planes.brief_planes(
-        img_smooth.to(torch.float32)[None],
-        brief_pattern(8 * n_bytes, seed=pattern_seed))
-    return gather_words(planes[0], xy)
+    """BRIEF at (N, 2) keypoints of one (H, W) pre-smoothed image: the
+    words of its dense bitplanes at the keypoints' pixels."""
+    return _at_keypoints(img_smooth[None], xy[None], n_bytes,
+                         pattern_seed)[0]
 
 
 def describe_pair(sm_left, sm_right, xy_left, xy_right, n_bytes: int = 16,
                   *, pattern_seed: int = 7):
-    """Stereo pair in ONE bitplane launch -> (desc_left, desc_right)."""
-    planes = brief_planes.brief_planes(
-        torch.stack([sm_left, sm_right]).to(torch.float32),
-        brief_pattern(8 * n_bytes, seed=pattern_seed))
-    return gather_words(planes[0], xy_left), gather_words(planes[1], xy_right)
+    """Stereo pair in ONE launch -> (desc_left, desc_right)."""
+    nl, nr = xy_left.shape[0], xy_right.shape[0]
+    if nl != nr:        # one (2, N, 2) batch: pad the shorter set
+        n = max(nl, nr)
+        xy_left = torch.nn.functional.pad(xy_left, (0, 0, 0, n - nl))
+        xy_right = torch.nn.functional.pad(xy_right, (0, 0, 0, n - nr))
+    dl, dr = _at_keypoints(torch.stack([sm_left, sm_right]),
+                           torch.stack([xy_left, xy_right]), n_bytes,
+                           pattern_seed)
+    if nl != nr:
+        dl = Descriptors(bits=dl.bits[:nl], packed=dl.packed[:nl])
+        dr = Descriptors(bits=dr.bits[:nr], packed=dr.packed[:nr])
+    return dl, dr
 
 
 def valid_mask(xy, width: int, height: int,

@@ -1,7 +1,9 @@
 """Parity of the port's BRIEF with the JAX package: the pattern table, the
 box blur, packed words of the dense-bitplane and the gather forms, the
 bitplane kernel's plain twin against the Pallas kernel in interpret mode,
-and the border mask."""
+the keypoint kernel's plain twin against the gathered dense planes (border,
+outside the image, half-integer coordinates, padding rows), and the border
+mask."""
 import numpy as np
 import pytest
 import torch
@@ -9,7 +11,7 @@ import torch
 from front_end_tpu.ops import brief as jbrief
 from front_end_tpu.ops.pallas import brief_kernel
 from front_end_tpu_torch.ops import brief as tbrief
-from front_end_tpu_torch.ops.kernels import brief_planes
+from front_end_tpu_torch.ops.kernels import brief_keypoints, brief_planes
 from torch_parity import image, n, t
 
 
@@ -86,3 +88,95 @@ def test_valid_mask_matches_jax():
     np.testing.assert_array_equal(
         n(tbrief.valid_mask(t(xy), 160, 96)),
         n(jbrief.valid_mask(xy, 160, 96)))
+
+
+H, W = 72, 100
+
+
+def _keypoints(kind, count=40, seed=0):
+    """(count, 2) float32 keypoints of one kind of trouble."""
+    rs = np.random.RandomState(seed)
+    if kind == "border":         # on and next to every edge and corner
+        xs = rs.choice([0, 1, 2, W - 3, W - 2, W - 1], count)
+        ys = rs.choice([0, 1, 2, H - 3, H - 2, H - 1], count)
+        xs[::2] = rs.randint(0, W, count)[::2]
+        xy = np.stack([xs, ys], -1)
+    elif kind == "outside":      # clamped into the image first
+        xy = np.stack([rs.uniform(-40, W + 40, count),
+                       rs.uniform(-40, H + 40, count)], -1)
+        xy[::2, 0] = rs.choice([-25.0, -0.6, W - 0.4, W + 30.0], count)[::2]
+    elif kind == "half":         # x.5 rounds to the even neighbour
+        xy = np.stack([rs.randint(-2, W + 2, count),
+                       rs.randint(-2, H + 2, count)], -1) + 0.5
+    else:                        # padding rows: zeros
+        xy = np.zeros((count, 2))
+        xy[: count // 4] = np.stack([rs.uniform(0, W, count // 4),
+                                     rs.uniform(0, H, count // 4)], -1)
+    return xy.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["border", "outside", "half", "padding"])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("n_bits", [128, 256, 512])
+def test_keypoint_twin_equals_gathered_planes(n_bits, batch, kind):
+    """Word for word what the dense route gives: planes, then a gather at
+    clamp(round(xy))."""
+    sm = tbrief.smooth(t(np.stack([image(H, W, seed=20 + b)
+                                   for b in range(batch)])))
+    xy = t(np.stack([_keypoints(kind, seed=b) for b in range(batch)]))
+    pat = tbrief.brief_pattern(n_bits)
+    got = brief_keypoints.brief_keypoints(
+        sm, xy, brief_keypoints.sample_table(pat))
+    planes = brief_planes.plain(sm, pat)
+    assert got.dtype == torch.uint32 and got.shape == (batch, 40, n_bits // 32)
+    for b in range(batch):
+        ref = tbrief.gather_words(planes[b], xy[b])
+        np.testing.assert_array_equal(n(got[b]), n(ref.packed))
+
+
+def test_half_integer_keypoints_round_to_even():
+    xy = t(np.array([[0.5, 1.5], [2.5, 3.5], [-0.5, 70.5]], np.float32))
+    px, py = brief_keypoints.keypoint_pixels(xy, H, W)
+    assert px.tolist() == [0, 2, 0] and py.tolist() == [2, 4, 70]
+
+
+@pytest.mark.parametrize("n_bits", [128, 256, 512])
+def test_sample_table_is_sorted_by_rows_and_decodes_to_the_pattern(n_bits):
+    pat = tbrief.brief_pattern(n_bits)
+    table = brief_keypoints.sample_table(pat)
+    assert table.dtype == torch.int32 and table.shape == (2 * n_bits,)
+    np.testing.assert_array_equal(n(brief_keypoints._offsets(table)), pat)
+    e = n(table).astype(np.int64)
+    dy = ((e >> 8 & 0xff) ^ 0x80) - 0x80
+    assert (np.diff(dy) >= 0).all()
+    assert sorted(e >> 16) == list(range(2 * n_bits))
+
+
+def test_describe_pair_takes_sets_of_different_sizes():
+    a, b = image(96, 160, seed=17), image(96, 160, seed=18)
+    sa, sb = tbrief.smooth(t(a)), tbrief.smooth(t(b))
+    xa = _interior_xy(96, 160, count=50, seed=6)
+    xb = _interior_xy(96, 160, count=31, seed=7)
+    pa, pb = tbrief.describe_pair(sa, sb, t(xa), t(xb), 16)
+    assert pa.packed.shape == (50, 4) and pb.bits.shape == (31, 128)
+    np.testing.assert_array_equal(
+        n(pa.packed), n(tbrief.describe_dense(sa, t(xa), 16).packed))
+    np.testing.assert_array_equal(
+        n(pb.packed), n(tbrief.describe_dense(sb, t(xb), 16).packed))
+
+
+@pytest.mark.parametrize("what", ["offset", "bits", "table", "rank"])
+def test_keypoint_kernel_rejects_what_it_does_not_take(what):
+    img, xy = torch.zeros(1, 32, 32), torch.zeros(1, 5, 2)
+    table = brief_keypoints.sample_table(tbrief.brief_pattern(128))
+    with pytest.raises(ValueError):
+        if what == "offset":     # offsets are stored as signed bytes
+            pat = np.zeros((32, 2, 2), np.int32)
+            pat[3, 1, 0] = 128
+            brief_keypoints.sample_table(pat)
+        elif what == "bits":
+            brief_keypoints.sample_table(np.zeros((48, 2, 2), np.int32))
+        elif what == "table":
+            brief_keypoints.brief_keypoints(img, xy, table.to(torch.int64))
+        else:
+            brief_keypoints.brief_keypoints(img[0], xy, table)

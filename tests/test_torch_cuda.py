@@ -15,9 +15,9 @@ import torch
 
 from front_end_tpu_torch.ops import brief as tbrief
 from front_end_tpu_torch.ops import fast as tfast
-from front_end_tpu_torch.ops.kernels import (brief_planes, fast_detect,
-                                             fast_grid, fast_margins,
-                                             match_reduce)
+from front_end_tpu_torch.ops.kernels import (brief_keypoints, brief_planes,
+                                             fast_detect, fast_grid,
+                                             fast_margins, match_reduce)
 from front_end_tpu_torch.types import pack_bits
 
 pytestmark = pytest.mark.cuda
@@ -192,6 +192,141 @@ def test_match_reduce_kernel_equals_plain(dev, mode, p, nq, nt, D):
     ref = match_reduce.plain(*args, mode, **p)
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
+
+
+# odd widths, an image smaller than the pattern's reach, one keypoint
+@pytest.mark.parametrize("n_bits", [128, 256, 512])
+@pytest.mark.parametrize("shape,count", [((1, 100, 141), 300),
+                                         ((2, 97, 131), 257),
+                                         ((2, 376, 1241), 2304),
+                                         ((1, 19, 23), 64), ((2, 64, 64), 1)])
+def test_brief_keypoints_kernel_equals_plain_and_dense(dev, n_bits, shape,
+                                                       count):
+    B, H, W = shape
+    sm = tbrief.smooth(torch.as_tensor(np.stack(
+        [image(H, W, seed=30 + b) for b in range(B)])))
+    rs = np.random.RandomState(count + n_bits)
+    xy = np.stack([rs.uniform(-30, W + 30, (B, count)),
+                   rs.uniform(-30, H + 30, (B, count))], -1)
+    xy[:, ::5] = np.round(xy[:, ::5]) + 0.5          # round half to even
+    xy[:, 1::7] = 0.0                                # padding rows
+    xy = torch.as_tensor(xy.astype(np.float32))
+    table = brief_keypoints.sample_table(tbrief.brief_pattern(n_bits))
+    before = brief_keypoints.launches
+    got = brief_keypoints.brief_keypoints(sm.to(dev), xy.to(dev),
+                                          table.to(dev))
+    torch.cuda.synchronize()
+    assert brief_keypoints.launches == before + 1
+    assert torch.equal(_ints(got).cpu(),
+                       _ints(brief_keypoints.plain(sm, xy, table)))
+    planes = brief_planes.brief_planes(sm.to(dev),
+                                       tbrief.brief_pattern(n_bits))
+    for b in range(B):
+        dense = tbrief.gather_words(planes[b], xy[b].to(dev)).packed
+        assert torch.equal(_ints(got[b]), _ints(dense))
+
+
+def test_brief_keypoints_copies_strided_input_and_rejects_other_types(dev):
+    sm = tbrief.smooth(torch.as_tensor(np.stack(
+        [image(80, 120, seed=s) for s in (40, 41)]))).to(dev)
+    rs = np.random.RandomState(2)
+    xy = torch.as_tensor(rs.uniform(0, 60, (2, 50, 4)).astype(
+        np.float32)).to(dev)
+    table = tbrief.table_on(256, 7, dev)
+    view, xy_view = sm[:, ::2, 1::2], xy[..., ::2]   # non-contiguous
+    assert not view.is_contiguous() and not xy_view.is_contiguous()
+    got = brief_keypoints.brief_keypoints(view, xy_view, table)
+    ref = brief_keypoints.plain(view.contiguous(), xy_view.contiguous(),
+                                table)
+    assert torch.equal(_ints(got), _ints(ref))
+    with pytest.raises(TypeError):
+        brief_keypoints.brief_keypoints(sm.double(), xy_view, table)
+    with pytest.raises(TypeError):
+        brief_keypoints.brief_keypoints(sm, xy_view.to(torch.float16), table)
+    with pytest.raises(ValueError):      # the table on another device
+        brief_keypoints.brief_keypoints(sm, xy_view, table.cpu())
+    d = tbrief.describe_dense(view[0], xy_view[0], 32)
+    assert torch.equal(_ints(d.packed), _ints(ref[0]))
+
+
+def _match_inputs(nq, nt, D, seed, dev, kind="random"):
+    rs = np.random.RandomState(seed)
+    bt = (rs.uniform(size=(nt, D)) > 0.5).astype(np.float32)
+    perm = rs.randint(0, nt, nq)
+    bq = np.abs(bt[perm] - (rs.uniform(size=(nq, D)) < 0.04))
+    xyt = np.stack([rs.uniform(30, 1200, nt), rs.uniform(30, 340, nt)], -1)
+    xyq = xyt[perm] + rs.normal(0, 5, (nq, 2))
+    vq, vt = rs.uniform(size=nq) > 0.1, rs.uniform(size=nt) > 0.3
+    if kind == "equal":                  # every distance 0: ties everywhere
+        bq[:], bt[:] = bt[0], bt[0]
+    elif kind == "gated":
+        vq[:], xyq[:] = rs.uniform(size=nq) > 0.5, xyq + 5000.0
+    elif kind == "invalid":
+        vt[:] = False
+    return [a.to(dev) for a in (
+        pack_bits(torch.as_tensor(bq.astype(np.float32))),
+        pack_bits(torch.as_tensor(bt)),
+        torch.as_tensor(xyq, dtype=torch.float32),
+        torch.as_tensor(xyt, dtype=torch.float32),
+        torch.as_tensor(vq), torch.as_tensor(vt))]
+
+
+MATCH_MODES = [("stereo", dict(p1=15.0, p2=0.0, p3=300.0)),
+               ("epi", dict(p1=15.0)), ("roi", dict(p1=40.0)), ("none", {})]
+
+
+@pytest.mark.parametrize("variant", ["mma", "popc"])
+@pytest.mark.parametrize("mode,p", MATCH_MODES)
+@pytest.mark.parametrize("D", [128, 256, 512])
+@pytest.mark.parametrize("nq,nt", [(1, 1), (1, 17), (17, 1), (17, 1000),
+                                   (1000, 17), (1000, 2304), (2304, 1000),
+                                   (1, 4608), (4608, 1), (2304, 4608),
+                                   (4608, 2304)])
+def test_match_reduce_mixed_sizes_equal_plain(dev, nq, nt, D, mode, p,
+                                              variant):
+    args = _match_inputs(nq, nt, D, nq * 7 + nt + D, dev)
+    before = match_reduce.launches
+    got = match_reduce.match_reduce(*args, mode=mode, variant=variant, **p)
+    torch.cuda.synchronize()
+    assert match_reduce.launches == before + 1
+    ref = match_reduce.plain(*args, mode, **p)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("variant", ["mma", "popc"])
+@pytest.mark.parametrize("mode,p", [("roi", dict(p1=40.0)), ("none", {})])
+@pytest.mark.parametrize("kind", ["equal", "gated", "invalid"])
+@pytest.mark.parametrize("nq,nt", [(1000, 2304), (130, 77)])
+def test_match_reduce_ties_and_gated_sets_equal_plain(dev, nq, nt, kind,
+                                                      mode, p, variant):
+    """All descriptors equal (every tie goes to the first index, d2 == d1);
+    every pair gated by the box, or every train invalid (BIG, index 0)."""
+    args = _match_inputs(nq, nt, 256, 3, dev, kind)
+    got = match_reduce.match_reduce(*args, mode=mode, variant=variant, **p)
+    ref = match_reduce.plain(*args, mode, **p)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if kind == "invalid" or (kind == "gated" and mode == "roi"):
+        assert (got[0] == match_reduce.BIG).all() and not got[2].any()
+        assert (got[3] == match_reduce.BIG).all() and not got[4].any()
+
+
+def test_match_reduce_rejects_sets_too_long_for_its_keys(dev):
+    small = _match_inputs(8, 8, 128, 1, dev)
+    n = match_reduce.MAX_N
+    words = torch.zeros((n, 4), dtype=torch.int32, device=dev).view(
+        torch.uint32)
+    xy = torch.zeros((n, 2), device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="queries"):
+        match_reduce.match_reduce(words, small[1], xy, small[3], valid,
+                                  small[5])
+    with pytest.raises(ValueError, match="queries"):
+        match_reduce.match_reduce(small[0], words, small[2], xy, small[4],
+                                  valid)
+    with pytest.raises(ValueError, match="variant"):
+        match_reduce.match_reduce(*small, variant="other")
 
 
 def test_vo_step_on_the_card_equals_the_cpu(dev):

@@ -1,7 +1,8 @@
 """Parity of the port's matching with the JAX package: the match kernel's
 plain twin against the Pallas kernel in interpret mode (all five
 reductions, every gate mode), the three recipes against the JAX XLA
-matrix path, and the matrix helpers."""
+matrix path, the matrix helpers, and the twin of the kernel's merge of
+per-block partials against the reductions over the whole sets."""
 import numpy as np
 import pytest
 import torch
@@ -135,3 +136,78 @@ def test_float_norm_is_a_later_item():
     (_, _), (_, _), (tkq, tdq), (tkt, tdt) = _both(seed=7)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         tmatch.stereo_match_live(tkq, tdq, tkt, tdt, norm="l2")
+
+
+def _split_starts(total, parts):
+    """Uneven cuts: the last piece is the short one (or a single row)."""
+    step = -(-total // parts)
+    return list(range(0, total, step))
+
+
+def _case(kind, nq=45, nt=101, D=128):
+    """Packed inputs for `plain`: random, with duplicate descriptors
+    (ties in rows and columns), or with fully gated rows and columns."""
+    bq, bt, xyq, xyt, vq, vt = _pair(nq=nq, nt=nt, D=D, seed=8, w=300.0,
+                                     h=120.0)
+    if kind == "ties":
+        bt[nt // 2:] = bt[: nt - nt // 2]          # every train twice
+        xyt[nt // 2:] = xyt[: nt - nt // 2]
+        bq[1::3] = bq[0]                            # equal queries
+        xyq[1::3] = xyq[0]
+    elif kind == "gated":
+        vq[:7] = False
+        vt[30:64] = False                           # a whole split and more
+        xyq[20:25] = 1e4                            # outside every box
+    return (ttypes.pack_bits(t(bq)), ttypes.pack_bits(t(bt)), t(xyq), t(xyt),
+            t(vq), t(vt))
+
+
+@pytest.mark.parametrize("mode,p", [("roi", dict(p1=60.0)), ("none", {})])
+@pytest.mark.parametrize("kind", ["random", "ties", "gated"])
+@pytest.mark.parametrize("tiles", [1, 2])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_merged_partials_equal_the_whole(splits, tiles, kind, mode, p):
+    """`plain` on every (query tile, train split) block, merged as the
+    kernel's second step merges them, is `plain` on the whole sets: first
+    index among equal distances, d2 == d1 for equal bests, BIG and index 0
+    for all-gated rows and columns."""
+    q, tr, xyq, xyt, vq, vt = _case(kind)
+    nq, nt = q.shape[0], tr.shape[0]
+    assert nt % splits or splits == 1
+    rows, cols = _split_starts(nq, tiles), _split_starts(nt, splits)
+    blocks = [[match_reduce.plain(
+        q[r0:r1], tr[c0:c1], xyq[r0:r1], xyt[c0:c1], vq[r0:r1], vt[c0:c1],
+        mode, **p) for c0, c1 in zip(cols, cols[1:] + [nt])]
+        for r0, r1 in zip(rows, rows[1:] + [nq])]
+    got = match_reduce.merge_partials(blocks, rows, cols)
+    ref = match_reduce.plain(q, tr, xyq, xyt, vq, vt, mode, **p)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(n(g), n(r))
+    if kind == "gated" and mode == "roi":
+        assert (ref[0][:7] == match_reduce.BIG).all() and not ref[2][:7].any()
+        assert (ref[3][30:64] == match_reduce.BIG).all()
+    if kind == "ties":
+        assert (ref[0] == ref[1]).sum() > nq // 3
+
+
+@pytest.mark.parametrize("nq,nt", [(2304, 2304), (2304, 4608), (1, 4608),
+                                   (4608, 1), (17, 1000), (1, 1),
+                                   (129, 4194303)])
+def test_plan_covers_every_column_in_whole_tiles(nq, nt):
+    tiles, cols, splits = match_reduce.plan(nq, nt, 132)
+    assert tiles == -(-nq // match_reduce.QUERIES_PER_BLOCK)
+    assert cols % 8 == 0 and cols >= match_reduce.MIN_SPLIT
+    assert (splits - 1) * cols < nt <= splits * cols
+    if nq == 2304:      # the paths' shapes: about four blocks on each SM
+        assert 0.9 * 132 * 4 <= tiles * splits <= 132 * 4
+
+
+def test_cpu_tensors_take_the_twin_whatever_the_variant():
+    args = _case("random")
+    a = match_reduce.match_reduce(*args, mode="roi", p1=60.0, variant="popc")
+    b = match_reduce.plain(*args, "roi", p1=60.0)
+    before = match_reduce.launches
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(n(x), n(y))
+    assert match_reduce.launches == before
