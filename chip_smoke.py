@@ -13,11 +13,9 @@ Phases, each of which exits non-zero on failure:
      kernel and twin with CUDA events: the grid, BRIEF and match kernels
      at the VO path's shapes (KITTI 376×1241 stereo pair, 2304 keypoints,
      256 bits; the keypoint BRIEF kernel also at 128 and 512 bits and
-     against the gathered dense planes; the match kernel in both of its
-     variants; the dense plane kernel, which no path launches any more,
-     against its twin all the same); the dense detect and margin kernels
-     at the service path's
-     (the KITTI pair for all three circle types, NMS on and off, scalar
+     against the gathered dense planes; the dense plane kernel, which no
+     path launches any more, against its twin all the same); the dense
+     detect and margin kernels at the service path's (the KITTI pair for all three circle types, NMS on and off, scalar
      and per-pixel threshold; the margin kernel also on the one image the
      sweep launches it at; the detect kernel also on every level shape of
      ORB's three scale factors and on BRISK's octaves);
@@ -68,20 +66,18 @@ CPU_FRAMES = 3
 POSE_TOL = 1e-4      # card vs CPU: float32 geometry summed in another order
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor
-# float32 ops/s; popcount issues 16 results per clock per SM on compute
-# capability 9.0 (CUDA C programming guide, arithmetic instruction
-# throughput), at 132 SMs and the 1.98 GHz boost clock.
+# float32 ops/s.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
-POPC_S = 16 * 132 * 1.98e9
 # a compare, min or logic operation is one result per lane and clock, half
 # the float32 figure, which counts a fused multiply-add as two
 CORE_OPS_S = F32_OPS_S / 2
 # no 1-bit tensor-core rate is published for the H100; the int8 rate is the
-# nearest published one and stands in for it
+# nearest published one and stands in for it (an assumption)
 TENSOR_INT_OPS_S = 1979e12
 # gate, key and min operations per pair that the match kernel leaves on the
-# CUDA cores once the popcounts run on the tensor cores
+# CUDA cores, its popcounts being on the tensor cores (an estimate, counted
+# from the source)
 MATCH_CORE_OPS = 12
 OFF_PATH = {"brief_planes"}   # kept, checked and timed; launched by no path
 SLEEP_CYCLES_S = 1.98e9   # `torch.cuda._sleep` spins this many clocks a second
@@ -248,24 +244,19 @@ def main() -> int:
         return {k: m.launches for k, m in modules.items()}
 
     def match_case(args, kw, what):
-        """Both variants of the match kernel against the twin, exactly;
-        device ms of each and of the twin."""
+        """The match kernel against the twin, exactly; device ms of both."""
         ref = match_reduce.plain(*args, **kw)
-        out = {"err": 0.0}
-        for variant in match_reduce.VARIANTS:
-            got = match_reduce.match_reduce(*args, variant=variant, **kw)
-            torch.cuda.synchronize()
-            check(all(same(torch, g, r) for g, r in zip(got, ref)),
-                  f"match_reduce ({what}, {variant}) != plain")
-            out["err"] = max(out["err"], max_abs_err(torch, got, ref))
-            out[variant] = cuda_ms(torch, lambda: match_reduce.match_reduce(
-                *args, variant=variant, **kw), 100)
-        out["plain"] = cuda_ms(torch,
-                               lambda: match_reduce.plain(*args, **kw), 10)
-        print(f"kernel match_reduce ({what}): exact; tensor cores "
-              f"{out['mma'] * 1e3:.1f} us, popcount variant "
-              f"{out['popc'] * 1e3:.1f} us, plain {out['plain'] * 1e3:.1f} us",
-              flush=True)
+        got = match_reduce.match_reduce(*args, **kw)
+        torch.cuda.synchronize()
+        check(all(same(torch, g, r) for g, r in zip(got, ref)),
+              f"match_reduce ({what}) != plain")
+        out = {"err": max_abs_err(torch, got, ref),
+               "ms": cuda_ms(torch, lambda: match_reduce.match_reduce(
+                   *args, **kw), 100),
+               "plain": cuda_ms(torch,
+                                lambda: match_reduce.plain(*args, **kw), 10)}
+        print(f"kernel match_reduce ({what}): exact; {out['ms'] * 1e3:.1f} "
+              f"us vs plain {out['plain'] * 1e3:.1f} us", flush=True)
         return out
 
     with pinned_f32():
@@ -399,20 +390,20 @@ def main() -> int:
         pairs = nq * nt
         by = (nq + nt) * (nw * 4 + 8 + 1) + nq * 12 + nt * 8
         # the popcounts run on the tensor cores (an AND and a count per
-        # bit); the CUDA cores keep the gate, key and min operations
+        # bit); the CUDA cores keep the gate, key and min operations.  The
+        # two pipes issue side by side, so the bound is the longer of them
         ops = pairs * (2 * 32 * nw + MATCH_CORE_OPS)
-        ops_s = (pairs * 2 * 32 * nw / TENSOR_INT_OPS_S
-                 + pairs * MATCH_CORE_OPS / CORE_OPS_S)
+        ops_s = max(pairs * 2 * 32 * nw / TENSOR_INT_OPS_S,
+                    pairs * MATCH_CORE_OPS / CORE_OPS_S)
         kernels.append(dict(
             name="match_reduce", route="cuda",
             source="front_end_tpu_torch/csrc/match_reduce.cu",
             replaces="front_end_tpu/ops/pallas/match_kernel.py:110",
             max_abs_err=max(v["err"] for v in times.values()),
-            ms=times["stereo"]["mma"], plain_ms=times["stereo"]["plain"],
-            ms_roi=times["roi"]["mma"], plain_ms_roi=times["roi"]["plain"],
-            ms_popc=times["stereo"]["popc"], ms_roi_popc=times["roi"]["popc"],
+            ms=times["stereo"]["ms"], plain_ms=times["stereo"]["plain"],
+            ms_roi=times["roi"]["ms"], plain_ms_roi=times["roi"]["plain"],
             bytes=by, ops=ops, bound_s=(by / HBM_BYTES_S, ops_s),
-            popcount_bound_ms=pairs * nw / POPC_S * 1e3, library_ms=None))
+            library_ms=None))
 
         # ---- the dense FAST kernels at the service path's shapes -------
         img0 = imgs[0].contiguous()
@@ -798,8 +789,7 @@ def main() -> int:
               > 1000, "match_reduce (tracker association): too few close rows")
         mk = [k for k in kernels if k["name"] == "match_reduce"][0]
         mk["max_abs_err"] = max(mk["max_abs_err"], tr["err"])
-        mk["ms_tracker"], mk["ms_tracker_popc"] = tr["mma"], tr["popc"]
-        mk["plain_ms_tracker"] = tr["plain"]
+        mk["ms_tracker"], mk["plain_ms_tracker"] = tr["ms"], tr["plain"]
 
         timed = []
         for _ in range(3):

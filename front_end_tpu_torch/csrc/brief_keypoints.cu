@@ -38,7 +38,8 @@ brief_keypoints_kernel(const float* __restrict__ img,
   float* val = s_val[threadIdx.x >> 5];
   const float2 p = xy[kp];
   // rintf rounds half to even, as torch.round does; the clamp in float
-  // equals the integer clamp for every finite coordinate
+  // equals the integer clamp for every finite coordinate, puts +-inf on the
+  // edge and NaN on pixel 0 (fmaxf returns its other operand)
   const int px = (int)fminf(fmaxf(rintf(p.x), 0.f), (float)(W - 1));
   const int py = (int)fminf(fmaxf(rintf(p.y), 0.f), (float)(H - 1));
   const float* im = img + (size_t)(kp / N) * H * W;

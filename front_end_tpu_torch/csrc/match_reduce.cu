@@ -9,9 +9,8 @@
 //
 // Grid = train splits x query tiles of 128.  A block stages its split's
 // train columns in shared memory, every warp computes 32 x 8 tiles of
-// distances (tensor cores: popc(a & ~b) + popc(~a & b) by
-// mma.m16n8k256.b1; or XOR + __popc on the CUDA cores), and everything is
-// reduced as 32-bit keys (distance code << 22 | index): rows in registers,
+// distances on the tensor cores (popc(a & ~b) + popc(~a & b) by
+// mma.m16n8k256.b1), and everything is reduced as 32-bit keys (distance code << 22 | index): rows in registers,
 // columns through a warp butterfly and one shared atomicMin.  A block
 // writes a partial per row and split and per column and tile; `finalize`
 // merges them.
@@ -73,7 +72,7 @@ __device__ __forceinline__ void push_key(uint32_t& k1, uint32_t& k2,
   k1 = min(k1, a1);
 }
 
-template <int NW, int MODE, bool MMA>
+template <int NW, int MODE>
 __global__ void __launch_bounds__(WARPS * 32, 4)
 match_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ t,
              const float2* __restrict__ xyq, const float2* __restrict__ xyt,
@@ -92,10 +91,9 @@ match_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ t,
   const int qbase = blockIdx.y * QPB + (threadIdx.x >> 5) * (MQ * 16);
 
   // this thread's rows: r = m * 2 + h is row qbase + m * 16 + h * 8 + g.
-  // With the tensor cores, Hamming = popc(a & ~b) + popc(~a & b): two
-  // products into one accumulator, so the rows are held as a and ~a.
-  uint32_t a[MQ][KS][4], na[MQ][KS][4];    // MMA: fragments of the rows
-  uint32_t qw[MMA ? 1 : ROWS][NW];         // else: the rows' words
+  // Hamming = popc(a & ~b) + popc(~a & b): two products into one
+  // accumulator, so the rows are held as fragments of a and ~a.
+  uint32_t a[MQ][KS][4], na[MQ][KS][4];
   uint32_t rowid[ROWS], k1[ROWS], k2[ROWS];
   float2 qxy[ROWS];
 #pragma unroll
@@ -107,27 +105,15 @@ match_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ t,
                            in ? xyq[qi] : make_float2(0.f, 0.f));
     k1[r] = k2[r] = FULL;
     const uint32_t* row = q + (size_t)qi * NW;
-    if constexpr (MMA) {
 #pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        const bool hi = NW >= 8;           // NW == 4: the upper words are 0
-        const uint32_t w0 = in ? row[s * 8 + tig] : 0u;
-        const uint32_t w1 = (in && hi) ? row[s * 8 + tig + 4] : 0u;
-        a[r >> 1][s][r & 1] = w0;
-        a[r >> 1][s][2 + (r & 1)] = w1;
-        na[r >> 1][s][r & 1] = in ? ~w0 : 0u;
-        na[r >> 1][s][2 + (r & 1)] = (in && hi) ? ~w1 : 0u;
-      }
-    } else {
-#pragma unroll
-      for (int w = 0; w < NW / 4; ++w) {
-        const uint4 v = in ? reinterpret_cast<const uint4*>(row)[w]
-                           : make_uint4(0, 0, 0, 0);
-        qw[r][4 * w] = v.x;
-        qw[r][4 * w + 1] = v.y;
-        qw[r][4 * w + 2] = v.z;
-        qw[r][4 * w + 3] = v.w;
-      }
+    for (int s = 0; s < KS; ++s) {
+      const bool hi = NW >= 8;             // NW == 4: the upper words are 0
+      const uint32_t w0 = in ? row[s * 8 + tig] : 0u;
+      const uint32_t w1 = (in && hi) ? row[s * 8 + tig + 4] : 0u;
+      a[r >> 1][s][r & 1] = w0;
+      a[r >> 1][s][2 + (r & 1)] = w1;
+      na[r >> 1][s][r & 1] = in ? ~w0 : 0u;
+      na[r >> 1][s][2 + (r & 1)] = (in && hi) ? ~w1 : 0u;
     }
   }
 
@@ -159,35 +145,16 @@ match_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ t,
 #pragma unroll
       for (int m = 0; m < MQ; ++m)
         ham[m][0] = ham[m][1] = ham[m][2] = ham[m][3] = 0;
-      if constexpr (MMA) {
 #pragma unroll
-        for (int s = 0; s < KS; ++s) {
-          const uint32_t* col = s_w + (j + g) * NW + s * 8 + tig;
-          const uint32_t b0 = col[0];
-          const uint32_t b1 = NW >= 8 ? col[4] : 0u;
-          const uint32_t nb1 = NW >= 8 ? ~b1 : 0u;
+      for (int s = 0; s < KS; ++s) {
+        const uint32_t* col = s_w + (j + g) * NW + s * 8 + tig;
+        const uint32_t b0 = col[0];
+        const uint32_t b1 = NW >= 8 ? col[4] : 0u;
+        const uint32_t nb1 = NW >= 8 ? ~b1 : 0u;
 #pragma unroll
-          for (int m = 0; m < MQ; ++m) {
-            mma_and_popc(ham[m], a[m][s], ~b0, nb1);
-            mma_and_popc(ham[m], na[m][s], b0, b1);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const uint4* col = reinterpret_cast<const uint4*>(s_w)
-                             + (ca + e) * (NW / 4);
-#pragma unroll
-          for (int w = 0; w < NW / 4; ++w) {
-            const uint4 v = col[w];
-#pragma unroll
-            for (int r = 0; r < ROWS; ++r) {
-              const uint32_t* x = qw[r] + 4 * w;
-              ham[r >> 1][(r & 1) * 2 + e] +=
-                  __popc(x[0] ^ v.x) + __popc(x[1] ^ v.y) +
-                  __popc(x[2] ^ v.z) + __popc(x[3] ^ v.w);
-            }
-          }
+        for (int m = 0; m < MQ; ++m) {
+          mma_and_popc(ham[m], a[m][s], ~b0, nb1);
+          mma_and_popc(ham[m], na[m][s], b0, b1);
         }
       }
       const float4 txy = *reinterpret_cast<const float4*>(s_xy + ca);
@@ -287,19 +254,18 @@ __global__ void finalize(const uint2* __restrict__ rowpart,
 
 }  // namespace
 
-// variant 0: tensor cores; 1: XOR + __popc.  rowpart holds n_splits x Nq
+// rowpart holds n_splits x Nq
 // uint2, colpart n_tiles x Nt uint32, n_tiles = ceil(Nq / 128) and
 // n_splits = ceil(Nt / split_cols); split_cols is a multiple of 8.
 extern "C" int match_reduce_launch(
     const void* q, const void* t, const void* xyq, const void* xyt,
     const void* vq, const void* vt, int Nq, int Nt, int nw, int mode,
-    float p1, float p2, float p3, int split_cols, int n_tiles, int variant,
-    void* d1,
+    float p1, float p2, float p3, int split_cols, int n_tiles, void* d1,
     void* d2, void* i1, void* cmin, void* carg, void* rowpart, void* colpart,
     void* stream) {
   if (Nq <= 0 || Nt <= 0 || Nq > (int)IDX_MASK || Nt > (int)IDX_MASK ||
       split_cols <= 0 || split_cols % 8 != 0 || mode < 0 || mode > 3 ||
-      variant < 0 || variant > 1 || n_tiles != (Nq + QPB - 1) / QPB)
+      n_tiles != (Nq + QPB - 1) / QPB)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_splits = (Nt + split_cols - 1) / split_cols;
@@ -310,20 +276,17 @@ extern "C" int match_reduce_launch(
       static_cast<const uint8_t*>(vq), static_cast<const uint8_t*>(vt), Nq,   \
       Nt, split_cols, p1, p2, p3, static_cast<uint2*>(rowpart),               \
       static_cast<uint32_t*>(colpart)
-#define MATCH_MODE(NW, MMA)                                                  \
+#define MATCH_MODE(NW)                                                       \
   switch (mode) {                                                            \
-    case 0: match_kernel<NW, 0, MMA><<<grid, block, 0, s>>>(MATCH_ARGS); break; \
-    case 1: match_kernel<NW, 1, MMA><<<grid, block, 0, s>>>(MATCH_ARGS); break; \
-    case 2: match_kernel<NW, 2, MMA><<<grid, block, 0, s>>>(MATCH_ARGS); break; \
-    default: match_kernel<NW, 3, MMA><<<grid, block, 0, s>>>(MATCH_ARGS);    \
+    case 0: match_kernel<NW, 0><<<grid, block, 0, s>>>(MATCH_ARGS); break;   \
+    case 1: match_kernel<NW, 1><<<grid, block, 0, s>>>(MATCH_ARGS); break;   \
+    case 2: match_kernel<NW, 2><<<grid, block, 0, s>>>(MATCH_ARGS); break;   \
+    default: match_kernel<NW, 3><<<grid, block, 0, s>>>(MATCH_ARGS);         \
   }
-#define MATCH_NW(MMA)                                                        \
-  if (nw == 4) { MATCH_MODE(4, MMA) }                                        \
-  else if (nw == 8) { MATCH_MODE(8, MMA) }                                   \
-  else if (nw == 16) { MATCH_MODE(16, MMA) }                                 \
+  if (nw == 4) { MATCH_MODE(4) }
+  else if (nw == 8) { MATCH_MODE(8) }
+  else if (nw == 16) { MATCH_MODE(16) }
   else return (int)cudaErrorInvalidValue;
-  if (variant == 0) { MATCH_NW(true) } else { MATCH_NW(false) }
-#undef MATCH_NW
 #undef MATCH_MODE
 #undef MATCH_ARGS
   cudaError_t e = cudaGetLastError();

@@ -91,19 +91,16 @@ def describe_dense(img_smooth, xy, n_bytes: int = 16, *,
 
 def describe_pair(sm_left, sm_right, xy_left, xy_right, n_bytes: int = 16,
                   *, pattern_seed: int = 7):
-    """Stereo pair in ONE launch -> (desc_left, desc_right)."""
-    nl, nr = xy_left.shape[0], xy_right.shape[0]
-    if nl != nr:        # one (2, N, 2) batch: pad the shorter set
-        n = max(nl, nr)
-        xy_left = torch.nn.functional.pad(xy_left, (0, 0, 0, n - nl))
-        xy_right = torch.nn.functional.pad(xy_right, (0, 0, 0, n - nr))
-    dl, dr = _at_keypoints(torch.stack([sm_left, sm_right]),
-                           torch.stack([xy_left, xy_right]), n_bytes,
-                           pattern_seed)
-    if nl != nr:
-        dl = Descriptors(bits=dl.bits[:nl], packed=dl.packed[:nl])
-        dr = Descriptors(bits=dr.bits[:nr], packed=dr.packed[:nr])
-    return dl, dr
+    """Stereo pair -> (desc_left, desc_right): in ONE launch where the two
+    sets are of one size (every path's are), else one per image."""
+    if xy_left.shape[0] != xy_right.shape[0]:
+        return (describe_dense(sm_left, xy_left, n_bytes,
+                               pattern_seed=pattern_seed),
+                describe_dense(sm_right, xy_right, n_bytes,
+                               pattern_seed=pattern_seed))
+    return tuple(_at_keypoints(torch.stack([sm_left, sm_right]),
+                               torch.stack([xy_left, xy_right]), n_bytes,
+                               pattern_seed))
 
 
 def valid_mask(xy, width: int, height: int,

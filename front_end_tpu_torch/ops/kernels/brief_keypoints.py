@@ -50,9 +50,13 @@ _SIG = {"brief_keypoints_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]}
 
 def keypoint_pixels(xy, H: int, W: int):
     """(…, 2) float xy -> integer (px, py): round half to even, then clamp
-    into the image."""
-    c = torch.round(xy).to(torch.int64)
-    return c[..., 0].clamp(0, W - 1), c[..., 1].clamp(0, H - 1)
+    into the image.  The clamp is made in float, as the kernel makes it, so
+    that ±inf lands on the edge and NaN on pixel 0 before the integer cast."""
+    r = torch.round(xy.to(torch.float32))
+    lo = torch.fmax(r, r.new_zeros(()))          # fmax: NaN -> 0, as fmaxf
+    hi = r.new_tensor([W - 1, H - 1])
+    c = torch.minimum(lo, hi).to(torch.int64)
+    return c[..., 0], c[..., 1]
 
 
 def sample_table(pattern) -> torch.Tensor:
@@ -97,20 +101,24 @@ def plain(img, xy, table):
 
 
 def brief_keypoints(img, xy, table):
-    """(B, H, W) float32 blurred images, (B, N, 2) float32 keypoints (x, y;
-    finite) and the pattern's `sample_table` on the images' device
-    -> (B, N, n_words) uint32.  Non-contiguous inputs are copied; any other
-    dtype or rank raises."""
+    """(B, H, W) float32 blurred images, (B, N, 2) float32 keypoints (x, y)
+    and the pattern's `sample_table` on the images' device
+    -> (B, N, n_words) uint32; N = 0 gives an empty result without a
+    launch.  Non-contiguous inputs are copied; any other dtype or rank
+    raises."""
     n_bits = table.shape[0] // 2
     if (table.ndim != 1 or table.dtype != torch.int32 or n_bits % 32
             or not 0 < n_bits <= MAX_BITS):
         raise ValueError(f"brief_keypoints: table {tuple(table.shape)} "
                          f"{table.dtype}; takes `sample_table` of a pattern")
     if img.ndim != 3 or xy.ndim != 3 or xy.shape[0] != img.shape[0] \
-            or xy.shape[2] != 2 or xy.shape[1] == 0:
+            or xy.shape[2] != 2:
         raise ValueError(f"brief_keypoints takes (B, H, W) images and "
                          f"(B, N, 2) keypoints, got {tuple(img.shape)} and "
                          f"{tuple(xy.shape)}")
+    if xy.shape[1] == 0:
+        return torch.empty((img.shape[0], 0, n_bits // 32),
+                           dtype=torch.uint32, device=img.device)
     if img.device.type == "cpu":
         return plain(img, xy, table)
     if img.device.type != "cuda":

@@ -40,10 +40,7 @@ twin), merges them: no memset, no global atomics, no host work.
 `finalize` is a programmatic dependent launch: the card sets it up while
 the main kernel drains.  No tile-divisibility limit: ragged edges are
 masked with the all-ones key.  Integer popcounts are exact, so the kernel
-equals the plain version bit for bit.  `variant="popc"` is the same
-schedule with XOR + `__popc` in place of the tensor-core products: no
-path selects it; it is kept so that `chip_smoke.py` times both in every
-run and the record of what the tensor cores buy stays reproducible.
+equals the plain version bit for bit.
 """
 from __future__ import annotations
 
@@ -59,7 +56,6 @@ from front_end_tpu_torch.utils.precision import pinned_f32
 launches = 0
 BIG = 1e9
 MODES = {"none": 0, "stereo": 1, "epi": 2, "roi": 3}
-VARIANTS = {"mma": 0, "popc": 1}
 MAX_N = 1 << 22           # a key holds 22 bits of index
 QUERIES_PER_BLOCK = 128   # csrc/match_reduce.cu: QPB
 BLOCKS_PER_SM = 4         # resident blocks the grid is sized for
@@ -69,8 +65,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIG = {"match_reduce_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                                _P, _P]}
+                                _F, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                _P]}
 
 
 def gate_mask(xyq, xyt, valid_q, valid_t, mode: str, p1=0.0, p2=0.0,
@@ -158,12 +154,10 @@ def _aligned(words):
 
 def match_reduce(words_q, words_t, xyq, xyt, valid_q, valid_t, *,
                  mode: str = "none", p1: float = 0.0, p2: float = 0.0,
-                 p3: float = 0.0, variant: str = "mma"):
+                 p3: float = 0.0):
     """Packed uint32 descriptors (N, D/32), xy (N, 2) float32, valid (N,)
     bool -> (d1, d2, i1) of shape (Nq,) and (col_min, col_arg) of (Nt,).
     Fewer than 2²² rows on either side."""
-    if variant not in VARIANTS:
-        raise ValueError(f"unknown match_reduce variant {variant!r}")
     if words_q.device.type == "cpu":
         return plain(words_q, words_t, xyq, xyt, valid_q, valid_t, mode,
                      p1, p2, p3)
@@ -196,9 +190,9 @@ def match_reduce(words_q, words_t, xyq, xyt, valid_q, valid_t, *,
     rc = lib.match_reduce_launch(
         q.data_ptr(), t.data_ptr(), xq.data_ptr(), xt.data_ptr(),
         vq.data_ptr(), vt.data_ptr(), Nq, Nt, nw, MODES[mode], p1, p2, p3,
-        split_cols, tiles, VARIANTS[variant], d1.data_ptr(), d2.data_ptr(),
-        i1.data_ptr(), col_min.data_ptr(), col_arg.data_ptr(),
-        row_part.data_ptr(), col_part.data_ptr(), _build.stream_handle(dev))
+        split_cols, tiles, d1.data_ptr(), d2.data_ptr(), i1.data_ptr(),
+        col_min.data_ptr(), col_arg.data_ptr(), row_part.data_ptr(),
+        col_part.data_ptr(), _build.stream_handle(dev))
     _build.check(rc, "match_reduce")
     launches += 1
     return d1, d2, i1, col_min, col_arg

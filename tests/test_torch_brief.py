@@ -140,6 +140,34 @@ def test_half_integer_keypoints_round_to_even():
     assert px.tolist() == [0, 2, 0] and py.tolist() == [2, 4, 70]
 
 
+def test_non_finite_keypoints_clamp_as_the_kernel_clamps():
+    """+-inf goes to the edge and NaN to pixel 0, and the words are those of
+    the finite keypoint at that pixel."""
+    inf, nan = float("inf"), float("nan")
+    xy = t(np.array([[inf, -inf], [-inf, inf], [nan, 5.0], [7.0, nan],
+                     [nan, nan]], np.float32))
+    at = t(np.array([[W - 1, 0], [0, H - 1], [0, 5], [7, 0], [0, 0]],
+                    np.float32))
+    px, py = brief_keypoints.keypoint_pixels(xy, H, W)
+    assert px.tolist() == [W - 1, 0, 0, 7, 0]
+    assert py.tolist() == [0, H - 1, 5, 0, 0]
+    sm = tbrief.smooth(t(image(H, W, seed=23)))[None]
+    table = brief_keypoints.sample_table(tbrief.brief_pattern(256))
+    np.testing.assert_array_equal(
+        n(brief_keypoints.brief_keypoints(sm, xy[None], table)),
+        n(brief_keypoints.brief_keypoints(sm, at[None], table)))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_no_keypoints_give_an_empty_result(batch):
+    sm = torch.zeros(batch, 32, 32)
+    table = brief_keypoints.sample_table(tbrief.brief_pattern(128))
+    got = brief_keypoints.brief_keypoints(sm, torch.zeros(batch, 0, 2), table)
+    assert got.shape == (batch, 0, 4) and got.dtype == torch.uint32
+    d = tbrief.describe_dense(sm[0], torch.zeros(0, 2), 16)
+    assert d.packed.shape == (0, 4) and d.bits.shape == (0, 128)
+
+
 @pytest.mark.parametrize("n_bits", [128, 256, 512])
 def test_sample_table_is_sorted_by_rows_and_decodes_to_the_pattern(n_bits):
     pat = tbrief.brief_pattern(n_bits)

@@ -249,6 +249,21 @@ def test_brief_keypoints_copies_strided_input_and_rejects_other_types(dev):
     assert torch.equal(_ints(d.packed), _ints(ref[0]))
 
 
+def test_brief_keypoints_non_finite_and_empty_sets_equal_the_twin(dev):
+    sm = tbrief.smooth(torch.as_tensor(np.stack(
+        [image(80, 120, seed=s) for s in (42, 43)]))).to(dev)
+    inf, nan = float("inf"), float("nan")
+    xy = torch.tensor([[[inf, -inf], [-inf, inf], [nan, 5.0], [7.0, nan],
+                        [nan, nan], [3e9, -3e9]]] * 2, device=dev)
+    table = tbrief.table_on(256, 7, dev)
+    got = brief_keypoints.brief_keypoints(sm, xy, table)
+    assert torch.equal(_ints(got), _ints(brief_keypoints.plain(sm, xy, table)))
+    before = brief_keypoints.launches
+    empty = brief_keypoints.brief_keypoints(sm, xy[:, :0], table)
+    assert empty.shape == (2, 0, 8) and empty.device == sm.device
+    assert brief_keypoints.launches == before
+
+
 def _match_inputs(nq, nt, D, seed, dev, kind="random"):
     rs = np.random.RandomState(seed)
     bt = (rs.uniform(size=(nt, D)) > 0.5).astype(np.float32)
@@ -275,18 +290,16 @@ MATCH_MODES = [("stereo", dict(p1=15.0, p2=0.0, p3=300.0)),
                ("epi", dict(p1=15.0)), ("roi", dict(p1=40.0)), ("none", {})]
 
 
-@pytest.mark.parametrize("variant", ["mma", "popc"])
 @pytest.mark.parametrize("mode,p", MATCH_MODES)
 @pytest.mark.parametrize("D", [128, 256, 512])
 @pytest.mark.parametrize("nq,nt", [(1, 1), (1, 17), (17, 1), (17, 1000),
                                    (1000, 17), (1000, 2304), (2304, 1000),
                                    (1, 4608), (4608, 1), (2304, 4608),
                                    (4608, 2304)])
-def test_match_reduce_mixed_sizes_equal_plain(dev, nq, nt, D, mode, p,
-                                              variant):
+def test_match_reduce_mixed_sizes_equal_plain(dev, nq, nt, D, mode, p):
     args = _match_inputs(nq, nt, D, nq * 7 + nt + D, dev)
     before = match_reduce.launches
-    got = match_reduce.match_reduce(*args, mode=mode, variant=variant, **p)
+    got = match_reduce.match_reduce(*args, mode=mode, **p)
     torch.cuda.synchronize()
     assert match_reduce.launches == before + 1
     ref = match_reduce.plain(*args, mode, **p)
@@ -294,16 +307,15 @@ def test_match_reduce_mixed_sizes_equal_plain(dev, nq, nt, D, mode, p,
         assert g.dtype == r.dtype and torch.equal(g, r)
 
 
-@pytest.mark.parametrize("variant", ["mma", "popc"])
 @pytest.mark.parametrize("mode,p", [("roi", dict(p1=40.0)), ("none", {})])
 @pytest.mark.parametrize("kind", ["equal", "gated", "invalid"])
 @pytest.mark.parametrize("nq,nt", [(1000, 2304), (130, 77)])
 def test_match_reduce_ties_and_gated_sets_equal_plain(dev, nq, nt, kind,
-                                                      mode, p, variant):
+                                                      mode, p):
     """All descriptors equal (every tie goes to the first index, d2 == d1);
     every pair gated by the box, or every train invalid (BIG, index 0)."""
     args = _match_inputs(nq, nt, 256, 3, dev, kind)
-    got = match_reduce.match_reduce(*args, mode=mode, variant=variant, **p)
+    got = match_reduce.match_reduce(*args, mode=mode, **p)
     ref = match_reduce.plain(*args, mode, **p)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
@@ -325,8 +337,6 @@ def test_match_reduce_rejects_sets_too_long_for_its_keys(dev):
     with pytest.raises(ValueError, match="queries"):
         match_reduce.match_reduce(small[0], words, small[2], xy, small[4],
                                   valid)
-    with pytest.raises(ValueError, match="variant"):
-        match_reduce.match_reduce(*small, variant="other")
 
 
 def test_vo_step_on_the_card_equals_the_cpu(dev):

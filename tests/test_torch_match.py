@@ -203,9 +203,9 @@ def test_plan_covers_every_column_in_whole_tiles(nq, nt):
         assert 0.9 * 132 * 4 <= tiles * splits <= 132 * 4
 
 
-def test_cpu_tensors_take_the_twin_whatever_the_variant():
+def test_cpu_tensors_take_the_twin():
     args = _case("random")
-    a = match_reduce.match_reduce(*args, mode="roi", p1=60.0, variant="popc")
+    a = match_reduce.match_reduce(*args, mode="roi", p1=60.0)
     b = match_reduce.plain(*args, "roi", p1=60.0)
     before = match_reduce.launches
     for x, y in zip(a, b):
