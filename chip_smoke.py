@@ -12,13 +12,22 @@ Phases, each of which exits non-zero on failure:
      twin — exact equality — at the shapes its path gives it, timing
      kernel and twin with CUDA events: the grid, BRIEF and match kernels
      at the VO path's shapes (KITTI 376×1241 stereo pair, 2304 keypoints,
-     256 bits; the keypoint BRIEF kernel also at 128 and 512 bits and
-     against the gathered dense planes; the dense plane kernel, which no
-     path launches any more, against its twin all the same); the dense
-     detect and margin kernels at the service path's (the KITTI pair for all three circle types, NMS on and off, scalar
-     and per-pixel threshold; the margin kernel also on the one image the
-     sweep launches it at; the detect kernel also on every level shape of
-     ORB's three scale factors and on BRISK's octaves);
+     256 bits; the grid kernel at thresholds from -inf, where every pixel
+     is a candidate of its early rejection, to 60, with a per-cell table,
+     and on a crop small enough for the lower of its two score windows; the
+     keypoint BRIEF kernel also
+     at 128 and 512 bits and against the gathered dense planes; the dense
+     plane kernel, which no path launches any more, against its twin all
+     the same); the dense detect and margin kernels at the service path's
+     (the KITTI pair for all three circle types, NMS on and off, scalar
+     thresholds from -inf to 60 and a per-pixel one; the margin kernel
+     also on the one image the sweep launches it at; the detect kernel
+     also on every level shape of ORB's three scale factors and on BRISK's
+     octaves).  The grid and detect kernels skip work where a cheap bound
+     proves a pixel's score 0, so their time depends on the image and the
+     threshold: each is timed at its path's threshold, with the share of
+     pixels the bound lets through, with every pixel a candidate and with
+     none;
   3. the VO path: `vo.run_sequence` over 20 synthetic KITTI frames at full
      width with the benchmark configuration (20, not the 40 of the first
      version of this script, so that the whole script keeps its run time
@@ -69,9 +78,14 @@ POSE_TOL = 1e-4      # card vs CPU: float32 geometry summed in another order
 # float32 ops/s.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
-# a compare, min or logic operation is one result per lane and clock, half
-# the float32 figure, which counts a fused multiply-add as two
+# an addition, subtraction or logic operation is one result per lane and
+# clock, half the float32 figure, which counts a fused multiply-add as two
 CORE_OPS_S = F32_OPS_S / 2
+# a float min, max or compare runs on a pipe half as wide: 64 results per
+# clock and SM in NVIDIA's published throughput table, 63.5
+# measured on the H100 with a register-only loop of independent fminf
+# (`PERF.md` section 6)
+MINMAX_OPS_S = CORE_OPS_S / 2
 # no 1-bit tensor-core rate is published for the H100; the int8 rate is the
 # nearest published one and stands in for it (an assumption)
 TENSOR_INT_OPS_S = 1979e12
@@ -146,26 +160,35 @@ def max_abs_err(torch, got, ref) -> float:
     return err
 
 
-def segment_ops_per_pixel(n: int, K: int) -> int:
-    """Float ops of the FAST segment test per pixel: n subtractions and n
-    negations; per brightness class the arc-margin passes (n mins each)
-    and the n - 1 maxima; the score max; for 12/8-point circles the quick
-    gates (8 max + 7 min per class) and 3 combines."""
+def segment_ops_per_pixel(n: int, K: int) -> tuple[int, int]:
+    """(min/max/compare, add/subtract) operations of the full FAST segment
+    test per pixel, on the ring's pixel values: per brightness class the
+    arc passes (n min or max each), the n - 1 of the other kind and one
+    subtraction; the score max; for 12/8-point circles the quick gates (8 +
+    7 per class, a subtraction each) and 3 combines."""
     passes = (K - 1).bit_length() - (1 if K & (K - 1) == 0 else 0)
-    arc = 2 * (passes * n + n - 1)
-    quick = 0 if n == 16 else 2 * 15 + 3
-    return 2 * n + arc + 1 + quick
+    minmax = 2 * (passes * n + n - 1) + 1
+    return (minmax, 2) if n == 16 else (minmax + 2 * 15 + 3, 4)
 
 
-def detect_ops_per_pixel(n: int, K: int, nms: bool) -> int:
+def detect_ops_per_pixel(n: int, K: int, nms: bool) -> tuple[int, int]:
     """The segment test, the threshold compare and select, and with NMS
     the 8-neighbour max, compare and select."""
-    return segment_ops_per_pixel(n, K) + 2 + (10 if nms else 0)
+    minmax, adds = segment_ops_per_pixel(n, K)
+    return minmax + 2 + (10 if nms else 0), adds
 
 
-def fast_ops_per_pixel(n: int, K: int) -> int:
+def fast_ops_per_pixel(n: int, K: int) -> tuple[int, int]:
     """The grid kernel: detect with NMS, then pool and count (~4)."""
-    return detect_ops_per_pixel(n, K, True) + 4
+    minmax, adds = detect_ops_per_pixel(n, K, True)
+    return minmax + 4, adds
+
+
+def fast_ops_seconds(per_pixel: tuple[int, int], pixels: int) -> float:
+    """The least time for that many segment tests: the min/max pipe, or
+    the dispatch of all the operations, whichever takes longer."""
+    minmax, adds = per_pixel
+    return pixels * max(minmax / MINMAX_OPS_S, (minmax + adds) / CORE_OPS_S)
 
 
 def features_close(a, b, tol):
@@ -270,24 +293,66 @@ def main() -> int:
         err = max_abs_err(torch, got, ref)
         check(err == 0.0 and all(same(torch, g, r) for g, r in
                                  zip(got, ref)), "fast_grid != plain")
-        check(int(got[2].sum()) > 1000, "fast_grid found too few corners")
+        corners = int(got[2].sum())
+        check(corners > 1000, "fast_grid found too few corners")
+        # the controller keeps thresholds in [4, 80]; the kernel holds for
+        # any: -inf makes every pixel a candidate of its early rejection
+        rs = np.random.RandomState(4)
+        table = torch.as_tensor(rs.randint(-2, 40, (2, 2, 3)).astype(
+            np.float32)).to(dev)
+        every = torch.full_like(thr, -torch.inf)
+        none = torch.full_like(thr, torch.inf)
+        for what, th in (("-inf", every), ("-1", torch.full_like(thr, -1.0)),
+                         ("1", torch.full_like(thr, 1.0)),
+                         ("60", torch.full_like(thr, 60.0)),
+                         ("per-cell table", table)):
+            # the pair's score windows are 32 rows high, the crop's 16
+            for where, im in (("pair", imgs), ("crop", imgs[:, :120, :400])):
+                c = (2, 3) + grid._cell_dims(*im.shape[-2:], cfg.grid)
+                got = fast_grid.fast_grid(im, th, c)
+                ref = fast_grid.plain(im, th, c)
+                torch.cuda.synchronize()
+                check(all(same(torch, g, r) for g, r in zip(got, ref)),
+                      f"fast_grid (thresholds {what}, {where}) != plain")
+                err = max(err, max_abs_err(torch, got, ref))
+        for ft in ("7_12", "5_8"):
+            got = fast_grid.fast_grid(imgs, table, cell, ft)
+            ref = fast_grid.plain(imgs, table, cell, ft)
+            torch.cuda.synchronize()
+            check(all(same(torch, g, r) for g, r in zip(got, ref)),
+                  f"fast_grid ({ft}) != plain")
+            err = max(err, max_abs_err(torch, got, ref))
         ms = cuda_ms(torch, lambda: fast_grid.fast_grid(imgs, thr, cell), 100)
+        ms_all = cuda_ms(torch, lambda: fast_grid.fast_grid(imgs, every,
+                                                            cell), 100)
+        ms_none = cuda_ms(torch, lambda: fast_grid.fast_grid(imgs, none,
+                                                             cell), 100)
         plain_ms = cuda_ms(torch, lambda: fast_grid.plain(imgs, thr, cell),
                            10)
+        fd, fb = fast_ops.candidate_masks(
+            imgs, fast_grid.threshold_map(thr, H, W, cell[2], cell[3]))
+        share = float((fd | fb).float().mean())
         ph, pw = fast_grid.pooled_dims(cell[2], cell[3])
         n_out = 2 * 6 * ph * pw
         by = imgs.numel() * 4 + thr.numel() * 4 + n_out * 5 + 2 * 6 * 4
-        ops = fast_ops_per_pixel(16, 9) * imgs.numel()
+        per_px = fast_ops_per_pixel(16, 9)
+        # the kernel skips the segment test where a bound proves the score
+        # 0, so the operations of the full test are no floor: the bound is
+        # the bytes, and the full test's count stands beside it as `ops`
         kernels.append(dict(
             name="fast_grid", route="cuda",
             source="front_end_tpu_torch/csrc/fast_grid.cu",
             replaces="front_end_tpu/ops/pallas/fast_kernel.py:351",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bytes=by, ops=ops, bound_s=(by / HBM_BYTES_S, ops / F32_OPS_S),
-            library_ms=None))
-        print(f"kernel fast_grid: exact; {ms * 1e3:.1f} us vs plain "
-              f"{plain_ms * 1e3:.1f} us; {int(got[2].sum())} corners",
-              flush=True)
+            max_abs_err=err, ms=ms, ms_all_candidates=ms_all,
+            ms_no_candidates=ms_none, candidate_share=share,
+            plain_ms=plain_ms, bytes=by, ops=sum(per_px) * imgs.numel(),
+            bound_s=(by / HBM_BYTES_S, 0.0), library_ms=None))
+        print(f"kernel fast_grid: exact (thresholds -inf to 60 and per "
+              f"cell, 3 circle types); {ms * 1e3:.1f} us at the path's "
+              f"thresholds ({share:.1%} of pixels candidates), "
+              f"{ms_all * 1e3:.1f} us with every pixel a candidate, "
+              f"{ms_none * 1e3:.1f} us with none, vs plain "
+              f"{plain_ms * 1e3:.1f} us; {corners} corners", flush=True)
 
         sm = brief.smooth(imgs)
         pat = brief.brief_pattern(8 * cfg.desc_bytes)
@@ -408,7 +473,7 @@ def main() -> int:
         # ---- the dense FAST kernels at the service path's shapes -------
         img0 = imgs[0].contiguous()
         rs = np.random.RandomState(5)
-        tmap = torch.as_tensor(rs.randint(4, 40, (2, H, W)).astype(
+        tmap = torch.as_tensor(rs.randint(-2, 40, (2, H, W)).astype(
             np.float32)).to(dev)
         worst_m = worst_d = 0.0
         for ft in fast_ops.TYPES:
@@ -426,18 +491,19 @@ def main() -> int:
                   f"fast_margins ({ft}, one image) != plain")
             worst_m = max(worst_m, max_abs_err(torch, got, ref))
             for nms in (True, False):
-                for thr_d in (15.0, tmap):
-                    got = fast_detect.fast_detect(imgs, thr_d, ft, nms)
+                for thr_d in (-torch.inf, -1.0, 1.0, 15.0, 60.0, tmap):
                     ref = fast_detect.plain(imgs, thr_d, ft, nms)
+                    got = fast_detect.fast_detect(imgs, thr_d, ft, nms)
                     torch.cuda.synchronize()
-                    what = (f"fast_detect ({ft}, nms={nms}, "
-                            f"{'map' if thr_d is tmap else 'scalar'})")
+                    what = (f"fast_detect ({ft}, nms={nms}, threshold "
+                            f"{'map' if thr_d is tmap else thr_d})")
                     check(same(torch, got, ref), f"{what} != plain")
                     worst_d = max(worst_d, max_abs_err(torch, [got], [ref]))
         check(int((fast_margins.fast_margins(img0)[0] > 15).sum()) > 1000,
               "fast_margins found too few corners")
         # every shape the sweep launches the detect kernel at: ORB's levels
-        # at the table's three scale factors, BRISK's octaves
+        # at the table's three scale factors, BRISK's octaves (the small
+        # ones take score windows of 16 rows, the others of 32)
         level_ms = {}
         held = [("ORB level 0", img0)]
         for sf in features.ORB_PARAMS["scale_factor"]:
@@ -470,35 +536,51 @@ def main() -> int:
         by_type = {ft: cuda_ms(
             torch, lambda: fast_margins.fast_margins(img0, ft), 100)
             for ft in ("7_12", "5_8")}
-        by, ops = npix * 12, segment_ops_per_pixel(16, 9) * npix
+        by, per_px = npix * 12, segment_ops_per_pixel(16, 9)
         kernels.append(dict(
             name="fast_margins", route="cuda",
             source="front_end_tpu_torch/csrc/fast_margins.cu",
             replaces="front_end_tpu/ops/pallas/fast_kernel.py:420",
             max_abs_err=worst_m, ms=ms, plain_ms=plain_ms, ms_7_12=by_type[
-                "7_12"], ms_5_8=by_type["5_8"], bytes=by, ops=ops,
-            bound_s=(by / HBM_BYTES_S, ops / F32_OPS_S), library_ms=None))
+                "7_12"], ms_5_8=by_type["5_8"], bytes=by,
+            ops=sum(per_px) * npix,
+            bound_s=(by / HBM_BYTES_S, fast_ops_seconds(per_px, npix)),
+            library_ms=None))
         print(f"kernel fast_margins: exact (3 circle types); {ms * 1e3:.1f} "
               f"us vs plain {plain_ms * 1e3:.1f} us per image", flush=True)
         ms = cuda_ms(torch, lambda: fast_detect.fast_detect(img0, 1.0), 100)
         plain_ms = cuda_ms(torch, lambda: fast_detect.plain(img0, 1.0), 10)
         variants = {
+            "ms_all_candidates": lambda: fast_detect.fast_detect(
+                img0, -torch.inf),
+            "ms_no_candidates": lambda: fast_detect.fast_detect(
+                img0, torch.inf),
             "ms_no_nms": lambda: fast_detect.fast_detect(img0, 1.0, "9_16",
                                                          False),
+            "ms_threshold_15": lambda: fast_detect.fast_detect(img0, 15.0),
             "ms_map": lambda: fast_detect.fast_detect(img0, tmap[0]),
             "ms_pair": lambda: fast_detect.fast_detect(imgs, 15.0)}
         extra_ms = {k: cuda_ms(torch, f, 100) for k, f in variants.items()}
-        by, ops = npix * 8, detect_ops_per_pixel(16, 9, True) * npix
+        fd, fb = fast_ops.candidate_masks(img0, 1.0)
+        share = float((fd | fb).float().mean())
+        by, per_px = npix * 8, detect_ops_per_pixel(16, 9, True)
+        # as for the grid kernel: work is skipped, so the bound is the bytes
         kernels.append(dict(
             name="fast_detect", route="cuda",
             source="front_end_tpu_torch/csrc/fast_detect.cu",
             replaces="front_end_tpu/ops/pallas/fast_kernel.py:219",
             max_abs_err=worst_d, ms=ms, plain_ms=plain_ms, **extra_ms,
-            ms_orb_levels=level_ms, bytes=by, ops=ops,
-            bound_s=(by / HBM_BYTES_S, ops / F32_OPS_S), library_ms=None))
-        print(f"kernel fast_detect: exact (3 types x nms x scalar/map, "
-              f"{len(held)} level and octave shapes); {ms * 1e3:.1f} us vs plain {plain_ms * 1e3:.1f} us "
-              f"per image", flush=True)
+            candidate_share=share, ms_orb_levels=level_ms, bytes=by,
+            ops=sum(per_px) * npix,
+            bound_s=(by / HBM_BYTES_S, 0.0), library_ms=None))
+        print(f"kernel fast_detect: exact (3 types x nms x thresholds -inf "
+              f"to 60 and a map, {len(held)} level and octave shapes); "
+              f"{ms * 1e3:.1f} us at the sweep's threshold 1.0 "
+              f"({share:.1%} of pixels candidates), "
+              f"{extra_ms['ms_all_candidates'] * 1e3:.1f} us with every "
+              f"pixel a candidate, {extra_ms['ms_no_candidates'] * 1e3:.1f} "
+              f"us with none, vs plain {plain_ms * 1e3:.1f} us per "
+              f"image", flush=True)
 
         # ---- phase 3: the VO path ------------------------------------
         LW = torch.as_tensor(lefts).to(dev)

@@ -32,7 +32,8 @@ fast_margins_kernel(const float* __restrict__ img, float* __restrict__ detect,
   const size_t base = (size_t)b * H * W;
   const int tid = threadIdx.x;
 
-  load_tile<IMG, NTHREADS>(img + base, s_img, y0 - 3, x0 - 3, H, W, tid);
+  load_tile<IMG, IMG, NTHREADS>(img + base, s_img, y0 - 3, x0 - 3, H, W,
+                                tid);
   __syncthreads();
 
   for (int i = tid; i < TILE * TILE; i += NTHREADS) {
@@ -41,7 +42,7 @@ fast_margins_kernel(const float* __restrict__ img, float* __restrict__ detect,
     if (gy >= H || gx >= W) continue;
     float det = 0.f, sc = 0.f;
     if (fast_interior(gy, gx, H, W)) {
-      margins<N, K, IMG>(s_img, ly + 3, lx + 3, det, sc);
+      margins<N, K, IMG>(s_img + (ly + 3) * IMG + lx + 3, det, sc);
     }
     const size_t o = base + (size_t)gy * W + gx;
     detect[o] = det;

@@ -62,6 +62,42 @@ def _quick_margin(d):
     return m
 
 
+def reject_bounds(dark):
+    """Upper bounds (dark class, bright class) on what each brightness
+    class can contribute to `detect`, from `dark` = p − c_i stacked on dim
+    0: detect <= max of the two, and a class whose bound is <= t cannot lift
+    `detect` above t.  16 points: every arc of 9 holds one point of each
+    antipodal pair, so the arc margin is at most min(max(d0, d8),
+    max(d4, d12)), four taps; for the bright class d -> −d turns that into
+    −max(min(d0, d8), min(d4, d12)).  12 and 8 points: cv2's quick margins,
+    which gate `detect` already.  Exact in floats (min, max and negation
+    only select or flip values).  The plain form of the CUDA kernels'
+    early rejection (`csrc/fast_segment.cuh`)."""
+    if dark.shape[0] == 16:
+        d0, d4, d8, d12 = dark[0], dark[4], dark[8], dark[12]
+        bd = torch.minimum(torch.maximum(d0, d8), torch.maximum(d4, d12))
+        bb = -torch.maximum(torch.minimum(d0, d8), torch.minimum(d4, d12))
+        return bd, bb
+    return _quick_margin(dark), _quick_margin(-dark)
+
+
+def _dark_diffs(img, circle):
+    """(n, ..., H, W): p − c_i over the edge-padded image."""
+    r = max(max(abs(dx), abs(dy)) for dx, dy in circle)
+    view = shift_views(img, r)
+    return img[None] - torch.stack([view(dy, dx) for (dx, dy) in circle])
+
+
+def candidate_masks(img, threshold, fast_type: str = "9_16"):
+    """(dark, bright) boolean maps of the pixels whose class bound exceeds
+    the threshold; every other pixel scores exactly 0 in `detect_dense`."""
+    img = img.to(torch.float32)
+    bd, bb = reject_bounds(_dark_diffs(img, TYPES[fast_type][0]))
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=img.device)
+    interior = border_mask(*img.shape[-2:], device=img.device)
+    return (bd > t) & interior, (bb > t) & interior
+
+
 def border_mask(H: int, W: int, device=None):
     """cv2 processes rows/cols [3, size-4] for every pattern size."""
     ys = torch.arange(H, device=device)[:, None]
@@ -93,10 +129,7 @@ def fast_margins_plain(img, fast_type: str = "9_16"):
     circle, K = TYPES[fast_type]
     img = img.to(torch.float32)
     n = len(circle)
-    r = max(max(abs(dx), abs(dy)) for dx, dy in circle)
-    view = shift_views(img, r)
-    neigh = torch.stack([view(dy, dx) for (dx, dy) in circle])
-    dark = img[None] - neigh                       # p − c_i
+    dark = _dark_diffs(img, circle)                # p − c_i
     bright = -dark                                 # c_i − p
     run_d = _arc_margin(dark, K)
     run_b = _arc_margin(bright, K)
@@ -164,4 +197,34 @@ def detect_dense_plain(img, threshold, fast_type: str = "9_16",
     detect, score = fast_margins_plain(img, fast_type)
     t = torch.as_tensor(threshold, dtype=torch.float32, device=detect.device)
     s = torch.where(detect > t, score, torch.zeros_like(score))
+    return nms_cv2(s) if nms else s
+
+
+def detect_dense_two_phase(img, threshold, fast_type: str = "9_16",
+                           nms: bool = True):
+    """`detect_dense_plain` the way the CUDA kernels evaluate it, in plain
+    PyTorch (held against the one-pass form by the tests; no path calls
+    it): the cheap bounds of `reject_bounds` at every pixel, the segment
+    test only at the pixels a bound lets through.  For the 16-point circle
+    a class whose bound is <= t has its arc margin <= t, so it is left out
+    (−inf): if the other class's margin r exceeds t, max(rd, rb) = r."""
+    circle, K = TYPES[fast_type]
+    img = img.to(torch.float32)
+    fd, fb = candidate_masks(img, threshold, fast_type)
+    cand = fd | fb
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=img.device)
+    tc = torch.broadcast_to(t, img.shape)[cand]
+    dark = _dark_diffs(img, circle)[:, cand]       # (n, candidates)
+    rd, rb = _arc_margin(dark, K), _arc_margin(-dark, K)
+    if len(circle) == 16:
+        never = torch.full_like(rd, -torch.inf)
+        rd = torch.where(fd[cand], rd, never)
+        rb = torch.where(fb[cand], rb, never)
+        detect = score = torch.maximum(rd, rb)
+    else:
+        score = torch.maximum(rd, rb)
+        detect = torch.maximum(torch.minimum(rd, _quick_margin(dark)),
+                               torch.minimum(rb, _quick_margin(-dark)))
+    s = torch.zeros_like(img)
+    s[cand] = torch.where(detect > tc, score, torch.zeros_like(score))
     return nms_cv2(s) if nms else s

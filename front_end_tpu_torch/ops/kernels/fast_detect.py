@@ -5,23 +5,30 @@ tie-annihilating NMS -> the map of surviving corner scores
 Replaces `front_end_tpu/ops/pallas/fast_kernel.py::fast_detect_pallas`
 (Pallas body `_detect_kernel`, core `_nms_survivors`).
 
-What bounds it on the H100: operations, narrowly.  One float32 image is
-read and one map written (8 bytes per pixel, 12 with a threshold map)
-against ~200 float32 ops per pixel of the 16-point segment test plus the
-NMS; at 67 TFLOP/s the operations take slightly longer than the bytes at
-3.35 TB/s.
+What bounds it on the H100: one float32 image is read and one map written
+(8 bytes per pixel, 12 with a threshold map).  The full segment test at
+every pixel (~200 operations, most of them float min/max at half the
+float32 add rate) would take longer than those bytes, but the kernel only
+runs it where a cheap bound does not prove the score to be 0, so the bound
+is the bytes; as measured, what it pays for is the instruction rate of the
+index and list arithmetic, and at a threshold of 1.0, where two thirds of
+the pixels pass the bound, the segment tests that remain.
 
-Design: one block per 32×32-pixel tile.  The tile with a 4-pixel halo (3
-for the circle, 1 for the NMS) is staged in shared memory with clamped
-reads — the TPU kernel edge-pads a copy of the image and of the threshold
-map in memory; here neither copy exists, and a scalar threshold travels
-as a scalar (a map pointer is taken only when the caller has a map).  The
-gated scores of the tile and its 1-pixel ring go to shared memory, since
-cv2's NMS compares the THRESHOLDED sparse scores; then each thread applies
-the strict `>` NMS to four pixels.  Without NMS there is no ring.  The
-segment-test code is shared with the other two FAST kernels
-(`csrc/fast_segment.cuh`).  Any H, W >= 7; the ragged edge is masked.  The
-map equals `fast.detect_dense_plain` bit for bit.
+Design: one block per 32-wide score window (32 rows, or 16 when the image
+gives the card too few blocks), a warp per window row; with NMS the window
+is the block's 30-wide output tile plus a 1-pixel ring, since cv2's NMS
+compares the THRESHOLDED sparse scores.  The window's image with a 3-pixel
+halo is staged in shared memory by rows with clamped reads — the TPU
+kernel edge-pads a copy of the image and of the threshold map in memory;
+here neither copy exists, and a scalar threshold travels as a scalar (a
+map pointer is taken only when the caller has a map).  The gated scores
+come from `csrc/fast_segment.cuh::gated_scores`, shared with the grid
+kernel: a 4-tap bound per brightness class at every pixel, the survivors
+compacted into per-warp lists, the arc margin evaluated only for the
+classes that passed (see `fast_grid.py`).  Then the tile is written out by
+rows, the strict `>` NMS applied where the score is not 0.  Any H, W >= 7;
+the ragged edge is masked.  The map equals `fast.detect_dense_plain` bit
+for bit at any threshold, a per-pixel one included.
 """
 from __future__ import annotations
 

@@ -4,24 +4,39 @@ exact per-cell counts in one pass (`csrc/fast_grid.cu`).
 Replaces `front_end_tpu/ops/pallas/fast_kernel.py::fast_detect_grid_pallas`
 (Pallas body `_detect_grid_kernel`, core `_nms_survivors`).
 
-What bounds it on the H100: compute.  Every pixel runs the 16-tap segment
-test and ~170 float min/max ops of the arc margins (plus the NMS), while
-the bytes are one image read and a quarter-size pooled map written —
-about 190 float32 ops per 4 bytes read, far above the card's ~20
-ops/byte balance point of its non-tensor float32 rate.
+What bounds it on the H100: with every pixel taking the full segment test
+it is operations (~190 per pixel, most of them float min/max, which run
+at half the float32 add rate: 63.5 results per clock and SM measured),
+against one image read and a quarter-size pooled map written.  The kernel
+does not do that: at a detector's thresholds most pixels are no corners,
+and it proves so cheaply.  What is left is bytes in principle and, as
+measured, the instruction rate of the index and list arithmetic around the
+few float operations (7 µs of the kernel remain with no candidate at all).
 
-Design: one block per 32×32-pixel tile of ONE grid cell.  The tile's
-image plus a 4-pixel halo (3 for the circle, 1 for NMS) is staged in
-shared memory once with clamped reads; the thresholded scores of the
-34×34 ring are computed into shared memory (each pixel's threshold looked
-up from the (Gr, Gc) table, so no (H, W) threshold map exists), then each
-thread applies the tie-annihilating NMS to its 2×2 block and pools it.
-Pooling is per cell, from the cell's origin, with odd cell dims padded by
-zeros — the XLA path's `_detect_from_map` layout, so the keypoint set
-equals the JAX CPU path's at odd cells too (the TPU kernel pools on the
-global even grid and does not).  Counts are warp sums plus an integer
-`atomicAdd`, exact in any order.  The full-resolution response map never
-reaches device memory.
+Design (`csrc/fast_segment.cuh::gated_scores`): one block per 30×30-pixel
+tile (30×14 when the image gives the card too few blocks) of ONE grid cell;
+with the 1-pixel NMS halo the tile's score window is 32 wide, so a warp is
+a window row.  The tile's image plus a 4-pixel halo is staged in shared
+memory by rows with clamped reads, all of a thread's loads in flight at
+once.  Phase A: every pixel takes a 4-tap bound on each brightness class's
+margin (min(max(c0, c8), max(c4, c12)) − p for the bright one); both
+bounds <= t proves the score is exactly 0.  The others go on the warp's
+dark and bright lists (ballot + prefix popcount, no atomics).  Phase B: the
+warp walks its lists with all lanes and evaluates only the classes that
+passed, on the ring's pixel values themselves (one subtraction per margin:
+rounding is monotone, so this equals subtracting first, bit for bit).
+Each pixel's threshold comes from a 3×3 table of the tile's cell and its
+neighbours, so no (H, W) threshold map exists.  Phase C: one thread per
+2×2 block applies the tie-annihilating NMS to the largest of its four
+scores (only that one can survive), pools, and counts through
+`__syncthreads_count` and one integer `atomicAdd` per block, exact in any
+order.  Pooling is per cell, from the cell's origin, with odd cell dims
+padded by zeros — the XLA path's `_detect_from_map` layout, so the
+keypoint set equals the JAX CPU path's at odd cells too (the TPU kernel
+pools on the global even grid and does not).  The full-resolution response
+map never reaches device memory.  The time now depends on the image and
+the thresholds; with every pixel a candidate (threshold −inf) the lists hold
+the whole window twice and the kernel does the full test everywhere.
 
 Outputs, in the XLA path's layout: pooled scores (B, Gr, Gc, ph·pw),
 the winner's sub-position code 2·w2 + w1 (uint8), counts (B, Gr, Gc).

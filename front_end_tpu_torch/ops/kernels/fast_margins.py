@@ -4,19 +4,21 @@ with the 3-pixel border zeroed (`csrc/fast_margins.cu`).
 Replaces `front_end_tpu/ops/pallas/fast_kernel.py::fast_margins_pallas`
 (Pallas body `_kernel`).
 
-What bounds it on the H100: bytes, narrowly.  One float32 image is read
-and two maps of the same size are written (12 bytes per pixel) against
-~190 float32 min/max/subtract ops per pixel of the 16-point segment test;
-at the card's 3.35 TB/s and 67 TFLOP/s the bytes take about a quarter
-longer than the operations.
+What bounds it on the H100: operations.  One float32 image is read and
+two maps of the same size are written (12 bytes per pixel, 1.7 µs for a
+KITTI image at 3.35 TB/s) against ~160 float min/max per pixel of the
+16-point segment test, which run at 64 results per clock and SM, half
+the rate of an addition (63.5 measured): 4.4 µs.  There is no threshold
+here, so nothing can be skipped.
 
 Design: one block per 32×32-pixel tile; the tile plus its 3-pixel circle
 halo is staged in shared memory once with clamped reads (the TPU kernel
 pads a copy of the image in memory instead), each thread computes four
 pixels with the segment-test code shared with the other two FAST kernels
 (`csrc/fast_segment.cuh`) and writes both maps.  Any H, W >= 7; the
-ragged edge is masked.  Only subtractions, min, max and compares touch
-the values, so the maps equal `fast.fast_margins_plain` bit for bit.
+ragged edge is masked.  Only min, max, compares and one subtraction per
+margin touch the values, and rounding is monotone, so the maps equal
+`fast.fast_margins_plain`, which subtracts first, bit for bit.
 """
 from __future__ import annotations
 

@@ -13,8 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from front_end_tpu_torch import features
 from front_end_tpu_torch.ops import brief as tbrief
+from front_end_tpu_torch.ops import brisk as tbrisk
 from front_end_tpu_torch.ops import fast as tfast
+from front_end_tpu_torch.ops import image as timage
+from front_end_tpu_torch.ops import orb as torb
 from front_end_tpu_torch.ops.kernels import (brief_keypoints, brief_planes,
                                              fast_detect, fast_grid,
                                              fast_margins, match_reduce)
@@ -113,6 +117,136 @@ def test_fast_detect_kernel_equals_plain(dev, fast_type, nms, threshold,
     assert got.shape == ref.shape and torch.equal(got.cpu(), ref)
     if min(shape[-2:]) > 60:
         assert int((ref > 0).sum()) > 10
+
+
+INF = float("inf")
+
+
+def _threshold_case(case, img, fast_type):
+    """A threshold for the (..., H, W) CPU image `img`."""
+    if not isinstance(case, str):
+        return case
+    if case == "map":           # per-pixel, negative values included
+        rs = np.random.RandomState(7)
+        return torch.as_tensor(rs.randint(-2, 40, tuple(img.shape)).astype(
+            np.float32))
+    # the larger rejection bound itself: no pixel is a candidate ("bound"),
+    # or one float below it: every scored pixel is one ("under")
+    bd, bb = tfast.reject_bounds(tfast._dark_diffs(
+        img, tfast.TYPES[fast_type][0]))
+    thr = torch.maximum(bd, bb)
+    if case == "under":
+        thr = torch.nextafter(thr, torch.full_like(thr, -INF))
+    return thr
+
+
+def _image_case(kind, shape, fast_type):
+    img = _dense_images(shape, fast_type)
+    if kind == "flat":
+        return torch.full_like(img, 7.0)
+    if kind == "level":         # a resized pyramid level: non-integer pixels
+        big = _dense_images(shape[:-2] + (shape[-2] * 6 // 5 + 1,
+                                          shape[-1] * 6 // 5 + 1), fast_type)
+        return timage.resize_linear(big, *shape[-2:])
+    return img
+
+
+@pytest.mark.parametrize("shape", [(2, 61, 95), (1, 331, 1010)], ids=str)
+@pytest.mark.parametrize("threshold", [-INF, -1.0, 0.0, 1.0, 15.0, 60.0,
+                                       "map", "bound", "under"], ids=str)
+@pytest.mark.parametrize("kind", ["integer", "flat", "level"])
+@pytest.mark.parametrize("fast_type", ["9_16", "7_12", "5_8"])
+def test_fast_detect_thresholds_and_images(dev, fast_type, kind, threshold,
+                                           shape):
+    """Every pixel a candidate (-inf, "under"), none ("bound", a flat
+    image at 0), negative gates, a per-pixel map; integer and resized
+    pixels; a small batch of two, whose windows are 16 rows high on a card
+    of 100 SMs or more, and an image large enough for windows of 32 rows;
+    NMS on and off."""
+    img = _image_case(kind, shape, fast_type)
+    thr = _threshold_case(threshold, img, fast_type)
+    thr_dev = thr.to(dev) if isinstance(thr, torch.Tensor) else thr
+    for nms in (True, False):
+        got = fast_detect.fast_detect(img.to(dev), thr_dev, fast_type, nms)
+        torch.cuda.synchronize()
+        ref = fast_detect.plain(img, thr, fast_type, nms)
+        assert torch.equal(got.cpu(), ref), nms
+    if threshold == "bound":
+        assert not bool(ref.any())
+
+
+def _sweep_shapes():
+    """Every shape the service sweep launches the detect kernel at for a
+    KITTI image: ORB's levels at the table's scale factors, BRISK's
+    octaves."""
+    H, W = 376, 1241
+    shapes = {(H, W)}
+    for sf in features.ORB_PARAMS["scale_factor"]:
+        for lvl in range(1, max(features.ORB_PARAMS["n_levels"])):
+            shapes.add(tuple(torb.level_shape(H, W, lvl, sf)))
+    octave = torch.zeros(H, W)
+    for _ in range(1, max(features.BRISK_PARAMS["n_octaves"])):
+        octave = tbrisk.next_octave(octave)
+        shapes.add(tuple(octave.shape))
+    return sorted(shapes, reverse=True)
+
+
+@pytest.mark.parametrize("shape", _sweep_shapes(), ids=str)
+def test_fast_detect_at_every_sweep_shape(dev, shape):
+    """Resized (non-integer) pixels at the sweep's threshold, 1.0, batch of
+    one; the shapes fall on both sides of the window-height rule."""
+    big = torch.as_tensor(image(376, 1241, seed=50)).to(dev)
+    lv = timage.resize_linear(big, *shape).contiguous()
+    got = fast_detect.fast_detect(lv, 1.0, "9_16", True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fast_detect.plain(lv, 1.0, "9_16", True))
+    assert int((got > 0).sum()) > shape[0] * shape[1] // 2000
+
+
+# (B, H, W), (Gr, Gc): cells below one tile, KITTI (odd cell width), batch
+# of one and two, odd and even cells; the small images take windows of 16
+# rows, KITTI's of 32
+GRID_CASES = [((1, 20, 27), (2, 3)), ((2, 64, 96), (2, 3)),
+              ((1, 376, 1241), (2, 3)), ((2, 376, 1241), (2, 3)),
+              ((2, 93, 139), (3, 2))]
+
+
+@pytest.mark.parametrize("lo,hi", [(-INF, -INF), (-2, 3), (1, 2), (6, 20),
+                                   (60, 61)])
+@pytest.mark.parametrize("shape,cells", GRID_CASES, ids=str)
+def test_fast_grid_thresholds_shapes_and_batches(dev, shape, cells, lo, hi):
+    B, H, W = shape
+    Gr, Gc = cells
+    for fast_type in ("9_16", "7_12", "5_8"):
+        if fast_type != "9_16" and H > 100:
+            continue            # the other circles at the small shapes
+        imgs = _dense_images(shape, fast_type)
+        if lo == -INF:          # every pixel a candidate: the full lists
+            thr = torch.full((B, Gr, Gc), -INF)
+        else:
+            thr = torch.as_tensor(np.random.RandomState(3).randint(
+                lo, hi, (B, Gr, Gc)).astype(np.float32))
+        cell = (Gr, Gc, H // Gr, W // Gc)
+        got = fast_grid.fast_grid(imgs.to(dev), thr.to(dev), cell, fast_type)
+        torch.cuda.synchronize()
+        ref = fast_grid.plain(imgs, thr, cell, fast_type)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r), fast_type
+
+
+def test_fast_grid_on_resized_pixels_and_a_flat_image(dev):
+    big = torch.as_tensor(np.stack([image(226, 335, seed=s)
+                                    for s in (60, 61)]))
+    imgs = timage.resize_linear(big, 186, 279)
+    flat = torch.full((2, 186, 279), 9.0)
+    cell = (2, 3, 93, 93)
+    for x in (imgs, flat):
+        for t in (0.0, 9.0, -1.0):
+            thr = torch.full((2, 2, 3), t)
+            got = fast_grid.fast_grid(x.to(dev), thr.to(dev), cell)
+            ref = fast_grid.plain(x, thr, cell)
+            for g, r in zip(got, ref):
+                assert torch.equal(g.cpu(), r)
 
 
 def test_dense_kernels_take_strided_input_and_reject_other_types(dev):

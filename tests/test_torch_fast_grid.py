@@ -116,6 +116,41 @@ def test_detect_pair_exact(fast_type, shape):
         assert n(g.keypoints.valid).sum() > 50
 
 
+@pytest.mark.parametrize("init", [4.0, 80.0, 1.0, -1.0],
+                         ids=["min", "max", "one", "negative"])
+def test_detect_pair_exact_across_the_threshold_range(init):
+    """The controller keeps thresholds in [min_threshold, max_threshold] =
+    [4, 80]; the grid kernel's twin also holds below that range, where
+    most or all pixels are candidates."""
+    left, right = image(186, 279, seed=20), image(186, 279, seed=21)
+    tc, jc = _cfg(min_threshold=-2.0)
+    th = np.full((2, 3), init, np.float32)
+    got = tgrid.detect_pair(t(left), t(right), t(th), t(th), tc)
+    ref = jgrid.detect_pair(left, right, th, th, jc)
+    for g, r in zip(got, ref):
+        for f in ("xy", "score", "valid"):
+            np.testing.assert_array_equal(n(getattr(g.keypoints, f)),
+                                          n(getattr(r.keypoints, f)))
+        np.testing.assert_array_equal(n(g.cell_counts), n(r.cell_counts))
+        np.testing.assert_array_equal(n(g.thresholds), n(r.thresholds))
+
+
+@pytest.mark.parametrize("fast_type", TYPES)
+@pytest.mark.parametrize("lo,hi", [(6, 20), (-2, 3), (60, 61)])
+def test_grid_twin_from_the_two_phase_map(fast_type, lo, hi):
+    """Pooling the two-phase map (the kernels' evaluation order) gives the
+    grid kernel's twin exactly, at odd cell dims and any thresholds."""
+    imgs = t(np.stack([_image(fast_type, 93, 139, seed=s) for s in (22, 23)]))
+    thr = t(np.random.RandomState(24).randint(lo, hi, (2, 2, 3)).astype(
+        np.float32))
+    cell = (2, 3, 46, 46)
+    tmaps = fast_grid.threshold_map(thr, 93, 139, 46, 46)
+    smap = tfast.detect_dense_two_phase(imgs, tmaps, fast_type, True)
+    for g, r in zip(fast_grid.pool_cells(smap, cell),
+                    fast_grid.fast_grid(imgs, thr, cell, fast_type)):
+        assert torch.equal(g, r)
+
+
 def test_detect_single_image_matches_jax():
     img = image(186, 279, seed=10)
     tc, jc = _cfg(cell_capacity=32)
@@ -168,3 +203,4 @@ def test_wrapper_refuses_other_devices():
         fast_grid.fast_grid(torch.zeros(1, 32, 32, device="meta"),
                             torch.zeros(1, 2, 3, device="meta"),
                             (2, 3, 16, 10))
+

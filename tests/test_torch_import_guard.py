@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
@@ -37,6 +39,19 @@ def test_port_and_chip_smoke_import_no_jax():
     count, bad = out.stdout.strip().split(" ", 1)
     assert int(count) >= 41, out.stdout
     assert bad == "[]", bad
+
+
+@pytest.mark.parametrize("script", ["profile_torch_vo"])
+def test_port_scripts_import_no_jax(script):
+    """The measuring script beside `chip_smoke.py` runs where JAX is not
+    installed."""
+    code = (f"import sys, {script}\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'front_end_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
 
 
 def test_every_module_of_the_port_is_walked():
