@@ -27,7 +27,10 @@ Phases, each of which exits non-zero on failure:
      proves a pixel's score 0, so their time depends on the image and the
      threshold: each is timed at its path's threshold, with the share of
      pixels the bound lets through, with every pixel a candidate and with
-     none;
+     none.  Each kernel's wrapper is timed by CUDA events (back-to-back
+     calls) and its kernel alone by torch.profiler (`device_ms`): the
+     margin kernel per circle type, the dense plane kernel at 128, 256 and
+     512 bits beside its shared-load floor;
   3. the VO path: `vo.run_sequence` over 20 synthetic KITTI frames at full
      width with the benchmark configuration (20, not the 40 of the first
      version of this script, so that the whole script keeps its run time
@@ -138,6 +141,30 @@ def cuda_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(torch, fn, kernel: str, reps: int = 50):
+    """Device milliseconds per call of `fn` spent in the kernels whose name
+    holds `kernel`, by torch.profiler: the kernel alone, without the
+    wrapper's host work, launch gaps or other kernels.  None where the
+    profiler records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            us += (getattr(ev, "self_device_time_total", 0)
+                   or getattr(ev, "self_cuda_time_total", 0))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_us(ms) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
+
+
 def ints(torch, x):
     """uint32 tensors compared through an int32 view (PyTorch has few
     uint32 kernels on CUDA)."""
@@ -160,14 +187,34 @@ def max_abs_err(torch, got, ref) -> float:
     return err
 
 
+def arc_ops(n: int, K: int) -> int:
+    """min/max operations of `fast_segment.cuh::arc_extreme` for one
+    brightness class, counted along its recursion: the n / 2 pair extremes;
+    per group of M starts its core (a span of K - M + 1 ring values, one
+    operation per pair after the first), its combine, and the halving
+    network below it; the max over the groups."""
+    m = 1
+    while 2 * m <= K and n % (2 * m) == 0:
+        m *= 2
+
+    def span(length):
+        return length // 2 - 1
+
+    def group(M):
+        if M == 2:
+            return 1
+        return 2 * span(M // 2) + 3 + 2 * group(M // 2)
+
+    return n // 2 + n // m * (span(K - m + 1) + 1 + group(m)) + n // m - 1
+
+
 def segment_ops_per_pixel(n: int, K: int) -> tuple[int, int]:
     """(min/max/compare, add/subtract) operations of the full FAST segment
     test per pixel, on the ring's pixel values: per brightness class the
-    arc passes (n min or max each), the n - 1 of the other kind and one
-    subtraction; the score max; for 12/8-point circles the quick gates (8 +
-    7 per class, a subtraction each) and 3 combines."""
-    passes = (K - 1).bit_length() - (1 if K & (K - 1) == 0 else 0)
-    minmax = 2 * (passes * n + n - 1) + 1
+    arc network (`arc_ops`) and one subtraction; the score max; for 12/8-
+    point circles the quick gates (8 + 7 per class, a subtraction each) and
+    3 combines."""
+    minmax = 2 * arc_ops(n, K) + 1
     return (minmax, 2) if n == 16 else (minmax + 2 * 15 + 3, 4)
 
 
@@ -323,6 +370,8 @@ def main() -> int:
                   f"fast_grid ({ft}) != plain")
             err = max(err, max_abs_err(torch, got, ref))
         ms = cuda_ms(torch, lambda: fast_grid.fast_grid(imgs, thr, cell), 100)
+        dev_ms = device_ms(torch, lambda: fast_grid.fast_grid(imgs, thr, cell),
+                           "fast_grid_kernel")
         ms_all = cuda_ms(torch, lambda: fast_grid.fast_grid(imgs, every,
                                                             cell), 100)
         ms_none = cuda_ms(torch, lambda: fast_grid.fast_grid(imgs, none,
@@ -343,36 +392,55 @@ def main() -> int:
             name="fast_grid", route="cuda",
             source="front_end_tpu_torch/csrc/fast_grid.cu",
             replaces="front_end_tpu/ops/pallas/fast_kernel.py:351",
-            max_abs_err=err, ms=ms, ms_all_candidates=ms_all,
-            ms_no_candidates=ms_none, candidate_share=share,
+            max_abs_err=err, ms=ms, device_ms=dev_ms,
+            ms_all_candidates=ms_all, ms_no_candidates=ms_none,
+            candidate_share=share,
             plain_ms=plain_ms, bytes=by, ops=sum(per_px) * imgs.numel(),
             bound_s=(by / HBM_BYTES_S, 0.0), library_ms=None))
         print(f"kernel fast_grid: exact (thresholds -inf to 60 and per "
               f"cell, 3 circle types); {ms * 1e3:.1f} us at the path's "
-              f"thresholds ({share:.1%} of pixels candidates), "
+              f"thresholds (kernel alone {fmt_us(dev_ms)}; {share:.1%} of "
+              f"pixels candidates), "
               f"{ms_all * 1e3:.1f} us with every pixel a candidate, "
               f"{ms_none * 1e3:.1f} us with none, vs plain "
               f"{plain_ms * 1e3:.1f} us; {corners} corners", flush=True)
 
         sm = brief.smooth(imgs)
-        pat = brief.brief_pattern(8 * cfg.desc_bytes)
-        got = brief_planes.brief_planes(sm, pat)
-        ref = brief_planes.plain(sm, pat)
-        torch.cuda.synchronize()
-        check(same(torch, got, ref), "brief_planes != plain")
-        err = max_abs_err(torch, [got], [ref])
-        ms = cuda_ms(torch, lambda: brief_planes.brief_planes(sm, pat), 100)
+        bp = {}
+        for n_bits in (8 * cfg.desc_bytes, 128, 512):
+            pat = brief.brief_pattern(n_bits)
+            got = brief_planes.brief_planes(sm, pat)
+            ref = brief_planes.plain(sm, pat)
+            torch.cuda.synchronize()
+            check(same(torch, got, ref), f"brief_planes ({n_bits} bits) != "
+                  "plain")
+            bp[n_bits] = (
+                max_abs_err(torch, [got], [ref]),
+                cuda_ms(torch, lambda: brief_planes.brief_planes(sm, pat),
+                        100),
+                device_ms(torch, lambda: brief_planes.brief_planes(sm, pat),
+                          "brief_planes_kernel"))
+            del got, ref
+        n_bits = 8 * cfg.desc_bytes
+        pat = brief.brief_pattern(n_bits)
         plain_ms = cuda_ms(torch, lambda: brief_planes.plain(sm, pat), 5)
-        by = sm.numel() * 4 + got.numel() * 4
-        ops = sm.numel() * pat.shape[0]
+        by = sm.numel() * 4 + sm.numel() * n_bits // 8
+        ops = sm.numel() * n_bits       # one float compare a bit
         kernels.append(dict(
             name="brief_planes", route="cuda",
             source="front_end_tpu_torch/csrc/brief_planes.cu",
             replaces="front_end_tpu/ops/pallas/brief_kernel.py:76",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bytes=by, ops=ops,
-            bound_s=(by / HBM_BYTES_S, ops / F32_OPS_S), library_ms=None))
-        print(f"kernel brief_planes: exact; {ms * 1e3:.1f} us vs plain "
-              f"{plain_ms * 1e3:.1f} us", flush=True)
+            max_abs_err=max(v[0] for v in bp.values()), ms=bp[n_bits][1],
+            device_ms=bp[n_bits][2], ms_128=bp[128][1],
+            device_ms_128=bp[128][2], ms_512=bp[512][1],
+            device_ms_512=bp[512][2], plain_ms=plain_ms, bytes=by, ops=ops,
+            bound_s=(by / HBM_BYTES_S, ops / MINMAX_OPS_S), library_ms=None))
+        print(f"kernel brief_planes: exact (128, 256, 512 bits); "
+              f"{bp[n_bits][1] * 1e3:.3f} us (kernel alone "
+              f"{fmt_us(bp[n_bits][2])}) vs plain {plain_ms * 1e3:.1f} us at "
+              f"{n_bits} bits; {bp[128][1] * 1e3:.3f} us at 128 (alone "
+              f"{fmt_us(bp[128][2])}), {bp[512][1] * 1e3:.3f} us at 512 "
+              f"(alone {fmt_us(bp[512][2])})", flush=True)
 
         # the main path's match inputs: frame 0's stereo pair and frame
         # 1's left features against frame 0's
@@ -419,15 +487,15 @@ def main() -> int:
         plain_ms = cuda_ms(torch, lambda: brief_keypoints.plain(
             sm, kxy, table), 10)
         by = sm.numel() * 4 + kxy.numel() * 4 + bk[n_bits][2]
-        ops = kxy.shape[0] * kxy.shape[1] * n_bits
+        ops = kxy.shape[0] * kxy.shape[1] * n_bits     # compares
         kernels.append(dict(
             name="brief_keypoints", route="cuda",
             source="front_end_tpu_torch/csrc/brief_keypoints.cu",
             replaces="front_end_tpu/ops/pallas/brief_kernel.py:76",
             max_abs_err=max(v[1] for v in bk.values()), ms=bk[n_bits][0],
             plain_ms=plain_ms, ms_128=bk[128][0], ms_512=bk[512][0],
-            bytes=by, ops=ops, bound_s=(by / HBM_BYTES_S, ops / F32_OPS_S),
-            library_ms=None))
+            bytes=by, ops=ops,
+            bound_s=(by / HBM_BYTES_S, ops / MINMAX_OPS_S), library_ms=None))
         print(f"kernel brief_keypoints: exact (twin and gathered dense "
               f"planes; 128, 256, 512 bits); {bk[n_bits][0] * 1e3:.1f} us vs "
               f"plain {plain_ms * 1e3:.1f} us at {n_bits} bits; "
@@ -529,26 +597,39 @@ def main() -> int:
                     torch,
                     lambda: fast_detect.fast_detect(lv, 1.0, "9_16", True),
                     100)
-        # timed at the shape the service path launches them at: one image
+        # timed at the shape the service path launches them at: one image;
+        # the wrapper by CUDA events, the kernel alone by the profiler
         npix = img0.numel()
-        ms = cuda_ms(torch, lambda: fast_margins.fast_margins(img0), 100)
+        fm = {}
+        for ft in fast_ops.TYPES:
+            call = (lambda ft=ft: fast_margins.fast_margins(img0, ft))
+            fm[ft] = (cuda_ms(torch, call, 100),
+                      device_ms(torch, call, "fast_margins_kernel"))
+        ms_pair = cuda_ms(torch, lambda: fast_margins.fast_margins(imgs), 100)
         plain_ms = cuda_ms(torch, lambda: fast_margins.plain(img0), 10)
-        by_type = {ft: cuda_ms(
-            torch, lambda: fast_margins.fast_margins(img0, ft), 100)
-            for ft in ("7_12", "5_8")}
         by, per_px = npix * 12, segment_ops_per_pixel(16, 9)
         kernels.append(dict(
             name="fast_margins", route="cuda",
             source="front_end_tpu_torch/csrc/fast_margins.cu",
             replaces="front_end_tpu/ops/pallas/fast_kernel.py:420",
-            max_abs_err=worst_m, ms=ms, plain_ms=plain_ms, ms_7_12=by_type[
-                "7_12"], ms_5_8=by_type["5_8"], bytes=by,
-            ops=sum(per_px) * npix,
+            max_abs_err=worst_m, ms=fm["9_16"][0], device_ms=fm["9_16"][1],
+            plain_ms=plain_ms, ms_7_12=fm["7_12"][0],
+            device_ms_7_12=fm["7_12"][1], ms_5_8=fm["5_8"][0],
+            device_ms_5_8=fm["5_8"][1], ms_pair=ms_pair, bytes=by,
+            ops=sum(per_px) * npix, minmax_per_pixel={
+                ft: segment_ops_per_pixel(len(fast_ops.TYPES[ft][0]),
+                                          fast_ops.TYPES[ft][1])[0]
+                for ft in fast_ops.TYPES},
             bound_s=(by / HBM_BYTES_S, fast_ops_seconds(per_px, npix)),
             library_ms=None))
-        print(f"kernel fast_margins: exact (3 circle types); {ms * 1e3:.1f} "
-              f"us vs plain {plain_ms * 1e3:.1f} us per image", flush=True)
+        print("kernel fast_margins: exact (3 circle types); per image "
+              + ", ".join(f"{ft} {v[0] * 1e3:.3f} us (kernel alone "
+                          f"{fmt_us(v[1])})" for ft, v in fm.items())
+              + f", pair {ms_pair * 1e3:.3f} us, vs plain "
+              f"{plain_ms * 1e3:.1f} us", flush=True)
         ms = cuda_ms(torch, lambda: fast_detect.fast_detect(img0, 1.0), 100)
+        dev_ms = device_ms(torch, lambda: fast_detect.fast_detect(img0, 1.0),
+                           "fast_detect_kernel")
         plain_ms = cuda_ms(torch, lambda: fast_detect.plain(img0, 1.0), 10)
         variants = {
             "ms_all_candidates": lambda: fast_detect.fast_detect(
@@ -569,14 +650,15 @@ def main() -> int:
             name="fast_detect", route="cuda",
             source="front_end_tpu_torch/csrc/fast_detect.cu",
             replaces="front_end_tpu/ops/pallas/fast_kernel.py:219",
-            max_abs_err=worst_d, ms=ms, plain_ms=plain_ms, **extra_ms,
-            candidate_share=share, ms_orb_levels=level_ms, bytes=by,
+            max_abs_err=worst_d, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            **extra_ms, candidate_share=share, ms_orb_levels=level_ms,
+            bytes=by,
             ops=sum(per_px) * npix,
             bound_s=(by / HBM_BYTES_S, 0.0), library_ms=None))
         print(f"kernel fast_detect: exact (3 types x nms x thresholds -inf "
               f"to 60 and a map, {len(held)} level and octave shapes); "
-              f"{ms * 1e3:.1f} us at the sweep's threshold 1.0 "
-              f"({share:.1%} of pixels candidates), "
+              f"{ms * 1e3:.3f} us at the sweep's threshold 1.0 (kernel alone "
+              f"{fmt_us(dev_ms)}; {share:.1%} of pixels candidates), "
               f"{extra_ms['ms_all_candidates'] * 1e3:.1f} us with every "
               f"pixel a candidate, {extra_ms['ms_no_candidates'] * 1e3:.1f} "
               f"us with none, vs plain {plain_ms * 1e3:.1f} us per "

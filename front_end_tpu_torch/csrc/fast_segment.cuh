@@ -47,10 +47,6 @@ struct Tap {
   static constexpr int off = circle_dy<N>(I) * STRIDE + circle_dx<N>(I);
 };
 
-__host__ __device__ constexpr int floor_log2(int k) {
-  return k < 2 ? 0 : 1 + floor_log2(k / 2);
-}
-
 // The segment test works on the ring's pixel values c_i themselves, not on
 // the differences to the centre p: rounding is monotone, so
 //   min_i fl(c_i - p) = fl(min_i c_i - p),
@@ -76,33 +72,81 @@ __device__ __forceinline__ void load_ring(const float* px, float (&c)[N]) {
 }
 
 // BRIGHT: max over circular starts s of min over the K-window of
-// w[(s + j) % N]; dark: min over starts of the max over the window.
-// Sparse-table doubling, then one overlapping combine (min and max are
-// idempotent).  Destroys w.
+// w[(s + j) % N]; dark: min over starts of the max over the window.  K odd.
+//
+// The network rests on one identity of min and max (they only select
+// values, so it is bit-exact, +-inf included):
+//   max(min(C, x), min(C, y)) = min(C, max(x, y)).
+// The windows that start at A .. A + M - 1 all hold the core
+// [A + M - 1, A + K), so their best is min(core, best of what is left of
+// each), and what is left has the same shape again: for start s it is
+// [s, A + M - 1) u [A + K, s + K).  Halving the group of starts, each half
+// takes out its own core, [A + H - 1, A + M - 1) or [A + K, A + K + H),
+// and the halves of two starts leave one value each, w[A] and w[A + K]
+// (`arc_group`).  The ring is cut into groups of M starts, M the largest
+// power of 2 <= K that divides N (`arc_group_size`).  Every core begins at
+// an odd index and has an even length, so all of them are taken from the
+// N / 2 pair extremes of w[2j + 1], w[2j + 2].  Per class: 41 min/max for
+// 9_16, 29 for 7_12, 17 for 5_8; `chip_smoke.py::arc_ops` counts the same
+// recursion.
+template <int N, int K>
+__host__ __device__ constexpr int arc_group_size() {
+  int m = 1;
+  while (2 * m <= K && N % (2 * m) == 0) m *= 2;
+  return m;
+}
+
+// The extreme of one kind over w[O .. O + L) (indices mod N; O odd, L
+// even) from the pair extremes p[j] of w[2j + 1], w[2j + 2].
+template <int N, bool MIN, int O, int L>
+__device__ __forceinline__ float span(const float (&p)[N / 2]) {
+  constexpr int J = (O - 1) / 2;
+  float r = p[J % (N / 2)];
+#pragma unroll
+  for (int i = 1; i < L / 2; ++i) r = pick<MIN>(r, p[(J + i) % (N / 2)]);
+  return r;
+}
+
+// Best over the starts s in [A, A + M) of the extreme over
+// [s, A + M - 1) u [A + K, s + K).
+template <int N, int K, bool BRIGHT, int A, int M>
+__device__ __forceinline__ float arc_group(const float (&w)[N],
+                                           const float (&p)[N / 2]) {
+  if constexpr (M == 2) {
+    return pick<!BRIGHT>(w[A % N], w[(A + K) % N]);
+  } else {
+    constexpr int H = M / 2;
+    const float lo = pick<BRIGHT>(span<N, BRIGHT, A + H - 1, H>(p),
+                                  arc_group<N, K, BRIGHT, A, H>(w, p));
+    const float hi = pick<BRIGHT>(span<N, BRIGHT, A + K, H>(p),
+                                  arc_group<N, K, BRIGHT, A + H, H>(w, p));
+    return pick<!BRIGHT>(lo, hi);
+  }
+}
+
+// Best over the groups 0 .. G of M starts, each with its core.
+template <int N, int K, bool BRIGHT, int G>
+__device__ __forceinline__ float arc_groups(const float (&w)[N],
+                                            const float (&p)[N / 2]) {
+  constexpr int M = arc_group_size<N, K>(), A = G * M;
+  const float g = pick<BRIGHT>(span<N, BRIGHT, A + M - 1, K - M + 1>(p),
+                               arc_group<N, K, BRIGHT, A, M>(w, p));
+  if constexpr (G == 0) {
+    return g;
+  } else {
+    return pick<!BRIGHT>(arc_groups<N, K, BRIGHT, G - 1>(w, p), g);
+  }
+}
+
 template <int N, int K, bool BRIGHT>
-__device__ __forceinline__ float arc_extreme(float (&w)[N]) {
-  constexpr int LOG = floor_log2(K);
+__device__ __forceinline__ float arc_extreme(const float (&w)[N]) {
+  static_assert(N % 2 == 0 && K % 2 == 1 && 2 < K && K < N,
+                "odd arcs of an even ring");
+  float p[N / 2];
 #pragma unroll
-  for (int pass = 0; pass < LOG; ++pass) {
-    const int width = 1 << pass;
-    float t[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) t[i] = pick<BRIGHT>(w[i], w[(i + width) % N]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) w[i] = t[i];
-  }
-  constexpr int REST = K - (1 << LOG);
-  if (REST > 0) {
-    float t[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) t[i] = pick<BRIGHT>(w[i], w[(i + REST) % N]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) w[i] = t[i];
-  }
-  float best = w[0];
-#pragma unroll
-  for (int i = 1; i < N; ++i) best = pick<!BRIGHT>(best, w[i]);
-  return best;
+  for (int j = 0; j < N / 2; ++j)
+    p[j] = pick<BRIGHT>(w[2 * j + 1], w[(2 * j + 2) % N]);
+  return arc_groups<N, K, BRIGHT, N / arc_group_size<N, K>() - 1>(w, p);
 }
 
 // cv2's 8 quick-test pairs (k, (k + 8) mod N).  BRIGHT: min over the pairs
@@ -143,16 +187,14 @@ template <int N, int K, int STRIDE>
 __device__ __forceinline__ void margins(const float* px, float& detect,
                                         float& score) {
   const float p = px[0];
-  float c[N], w[N];
+  float c[N];
   load_ring<N, STRIDE>(px, c);
   float qd = 0.f, qb = 0.f;
   if (N != 16) {
     qd = p - quick_extreme<N, false>(c);
     qb = quick_extreme<N, true>(c) - p;
   }
-#pragma unroll
-  for (int i = 0; i < N; ++i) w[i] = c[i];
-  const float rd = p - arc_extreme<N, K, false>(w);
+  const float rd = p - arc_extreme<N, K, false>(c);
   const float rb = arc_extreme<N, K, true>(c) - p;
   score = fmaxf(rd, rb);
   detect = N == 16 ? score : fmaxf(fminf(rd, qd), fminf(rb, qb));
@@ -228,11 +270,6 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ im,
   }
 }
 
-// cv2 processes rows/cols [3, size - 4] for every pattern size.
-__device__ __forceinline__ bool fast_interior(int gy, int gx, int H, int W) {
-  return gy >= 3 && gy <= H - 4 && gx >= 3 && gx <= W - 4;
-}
-
 constexpr int SCORE_W = 32;            // width of a score window
 constexpr int TILE_W = SCORE_W + 6;    // width of its staged image tile
 
@@ -253,8 +290,9 @@ struct ScoreScratch {
 // lane's column, and everything `thr` derives from it, is fixed, and a
 // row's part is uniform over the warp.
 //
-// Most pixels are no corners, and the segment test is ~100 operations per
-// class, so each warp does the work of its rows in two phases:
+// Most pixels are no corners, and the segment test is ~60 loads and
+// operations per class, so each warp does the work of its rows in two
+// phases:
 //   A. every pixel: the cheap bounds of `reject_bounds`.  A pixel with
 //      both bounds <= t has detect <= t and scores exactly 0.  The others
 //      are appended to the warp's lists in shared memory (warp ballot and

@@ -2,7 +2,7 @@
 """Where the time of the PyTorch port's `vo_step`, or of its
 `window_vo_step`, goes, on one CUDA card.
 
-    python3 profile_torch_vo.py [--frames 20] [--path vo|window]
+    python3 profile_torch_vo.py [--frames 20] [--path vo|window|sweep]
 
 `--path window` drives `window_vo.run_sequence` with
 `WindowVOConfig.create` defaults and adds `tracker.update` and
@@ -18,6 +18,9 @@ drives) it prints:
   4. a `torch.profiler` window over 5 frames: kernel launches per frame,
      summed device kernel time per frame, the device's busy share of the
      wall time, and the top operators by host and by device time.
+`--path sweep` prints only the seconds of the 712-ID FAST/ORB/BRISK
+`services.single_image_detection` sweep on frame 0's pair, three runs
+after a warm-up on every 40th ID.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from front_end_tpu_torch import features, services  # noqa: E402
 from front_end_tpu_torch.geometry.camera import kitti_rig  # noqa: E402
 from front_end_tpu_torch.motion import lm, ransac  # noqa: E402
 from front_end_tpu_torch.ops import brief, grid, match  # noqa: E402
@@ -69,10 +73,30 @@ def run(L, R, rig, cfg):
     return (time.perf_counter() - t0) * 1e3 / len(L)
 
 
+def sweep(rig) -> None:
+    lefts, rights = make_sequence(1, rig.height, rig.width)
+    table = features.detector_table()
+    ids = sum((features.ids_for(f, table) for f in ("FAST", "ORB", "BRISK")),
+              [])
+    services.single_image_detection(ids[::40], lefts[0], rights[0],
+                                    device="cuda")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        services.single_image_detection(ids, lefts[0], rights[0],
+                                        device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"sweep: {len(ids)} IDs, {min(times):.3f} s (runs "
+          f"{[round(t, 3) for t in times]})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=20)
-    ap.add_argument("--path", choices=("vo", "window"), default="vo")
+    ap.add_argument("--path", choices=("vo", "window", "sweep"),
+                    default="vo")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_vo: needs a CUDA card", file=sys.stderr)
@@ -82,6 +106,9 @@ def main() -> int:
                           text=True).stdout.strip()
     print(f"card: {card}")
     rig, cfg = kitti_rig(), bench_cfg()
+    if args.path == "sweep":
+        sweep(rig)
+        return 0
     stages = list(STAGES)
     if args.path == "window":
         cfg = window_vo.WindowVOConfig.create(cfg)

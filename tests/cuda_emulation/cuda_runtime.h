@@ -1,11 +1,12 @@
-// A stand-in for <cuda_runtime.h> that runs the FAST kernels on the CPU, for
-// tests of their logic where there is no card: one block at a time, one
-// std::thread per CUDA thread, `__shared__` as a function-local static
-// (blocks run one after another, so the threads of a block share it),
-// barriers for __syncthreads and, per warp, for the lock-step intrinsics.
-// Only what csrc/fast_*.cu use is here.  A launch `k<<<grid, nt, 0, s>>>(a)`
-// has to be rewritten to `emu_launch(grid, nt, k, a)` before compiling (the
-// test does it).  Nothing here is timed or tuned.
+// A stand-in for <cuda_runtime.h> that runs the FAST and dense BRIEF kernels
+// on the CPU, for tests of their logic where there is no card: one block at
+// a time, one std::thread per CUDA thread, `__shared__` as a
+// function-local static (blocks run one after another, so the threads of a
+// block share it), barriers for __syncthreads and, per warp, for the
+// lock-step intrinsics.  Only what csrc/fast_*.cu and brief_planes.cu use
+// is here.  A launch `k<<<grid, block, 0, s>>>(a)` has to be rewritten to
+// `emu_launch(grid, block, k, a)` before compiling (`emulate.py` does it).
+// Nothing here is timed or tuned.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -25,12 +26,14 @@
 #define __restrict__
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local int emu_tid;    // the thread's index in its block
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
@@ -52,19 +55,17 @@ struct EmuBlock {
 inline EmuBlock* emu_block;
 
 inline void __syncthreads() { emu_block->all.arrive_and_wait(); }
-inline void __syncwarp() {
-  emu_block->warp[threadIdx.x / 32]->arrive_and_wait();
-}
+inline void __syncwarp() { emu_block->warp[emu_tid / 32]->arrive_and_wait(); }
 inline int __syncthreads_count(int p) {
   __syncthreads();
-  if (threadIdx.x == 0) emu_block->count = 0;
+  if (emu_tid == 0) emu_block->count = 0;
   __syncthreads();
   if (p) emu_block->count++;
   __syncthreads();
   return emu_block->count.load();
 }
 inline unsigned __ballot_sync(unsigned, int p) {
-  const int t = threadIdx.x, w = t / 32;
+  const int t = emu_tid, w = t / 32;
   emu_block->slot[t] = p != 0;
   __syncwarp();
   unsigned m = 0;
@@ -80,16 +81,19 @@ using std::max;
 using std::min;
 
 template <class Kernel, class... Args>
-void emu_launch(dim3 grid, int nt, Kernel kernel, Args... args) {
+void emu_launch(dim3 grid, dim3 block, Kernel kernel, Args... args) {
+  const int nt = block.x * block.y * block.z;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
-        EmuBlock block(nt);
-        emu_block = &block;
+        EmuBlock b(nt);
+        emu_block = &b;
         std::vector<std::thread> threads;
         for (int t = 0; t < nt; ++t)
           threads.emplace_back([=] {
-            threadIdx = dim3(t);
+            emu_tid = t;
+            threadIdx = dim3(t % block.x, t / block.x % block.y,
+                             t / (block.x * block.y));
             blockIdx = dim3(x, y, z);
             kernel(args...);
           });

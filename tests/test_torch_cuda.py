@@ -302,6 +302,40 @@ def test_brief_planes_kernel_equals_plain(dev, n_bits):
     assert torch.equal(_ints(got).cpu(), _ints(brief_planes.plain(sm, pat)))
 
 
+def _brief_images(case):
+    rs = np.random.RandomState(6)
+    if case == "below_a_tile":
+        return tbrief.smooth(torch.as_tensor(image(20, 25, seed=1)[None]))
+    if case == "ragged":
+        return tbrief.smooth(torch.as_tensor(np.stack(
+            [image(37, 53, seed=2), image(37, 53, seed=3)])))
+    if case == "wide":
+        return tbrief.smooth(torch.as_tensor(image(100, 261, seed=4)[None]))
+    if case == "ties":           # integer values, few of them
+        return torch.as_tensor(rs.randint(0, 4, (2, 70, 90)).astype(
+            np.float32))
+    x = rs.randint(0, 6, (1, 70, 90)).astype(np.float32)   # non-finite
+    x[0, 10:14, 20:23] = np.nan
+    x[0, 30, 5:40] = np.inf
+    x[0, 2:60, 60] = -np.inf
+    x[0, 40, 40] = -0.0
+    return torch.as_tensor(x)
+
+
+@pytest.mark.parametrize("case", ["below_a_tile", "ragged", "wide", "ties",
+                                  "non_finite"])
+@pytest.mark.parametrize("n_bits", [128, 256, 512])
+def test_brief_planes_kernel_on_ragged_tied_and_non_finite_images(
+        dev, n_bits, case):
+    img = _brief_images(case)
+    pat = tbrief.brief_pattern(n_bits)
+    before = brief_planes.launches
+    got = brief_planes.brief_planes(img.to(dev), pat)
+    torch.cuda.synchronize()
+    assert brief_planes.launches == before + 1
+    assert torch.equal(_ints(got).cpu(), _ints(brief_planes.plain(img, pat)))
+
+
 @pytest.mark.parametrize("mode,p", [
     ("stereo", dict(p1=15.0, p2=0.0, p3=300.0)), ("epi", dict(p1=15.0)),
     ("roi", dict(p1=40.0)), ("none", {}), ("roi", dict(p1=0.5))])

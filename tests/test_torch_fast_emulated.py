@@ -1,8 +1,9 @@
 """The FAST CUDA kernels' own logic on the CPU: `csrc/fast_grid.cu`,
 `fast_detect.cu` and `fast_margins.cu` compiled by the host's C++ compiler
 against `tests/cuda_emulation/cuda_runtime.h` (threads of a block as host
-threads, barriers for `__syncthreads` and the warp intrinsics) and held
-against the plain PyTorch twins, bit for bit.
+threads, barriers for `__syncthreads` and the warp intrinsics; built by
+`cuda_emulation/emulate.py`) and held against the plain PyTorch twins, bit
+for bit.
 
 A CUDA kernel has no interpret mode; this is the nearest thing for kernels
 that use nothing but shared memory, barriers and ballots.  It checks the
@@ -12,21 +13,16 @@ not that `nvcc` accepts the source or that the card runs it, which
 `g++` with C++20.
 """
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_emulation import emulate
 from front_end_tpu_torch.ops import fast as tfast
 from front_end_tpu_torch.ops.kernels import fast_grid
 from torch_parity import image
 
-CSRC = Path(fast_grid.__file__).resolve().parents[2] / "csrc"
-SHIM = Path(__file__).resolve().parent / "cuda_emulation"
 P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "fast_grid": [P] * 5 + [I] * 8 + [P],
@@ -39,33 +35,11 @@ INF = float("inf")
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels for the CPU")
-    out = tmp_path_factory.mktemp("emulated")
-    procs = {}
-    for name in SIGNATURES:
-        src = (CSRC / f"{name}.cu").read_text()
-        src, n = re.subn(r"(\w+<[^<>;]*>)\s*<<<(\w+), (\w+), 0, s>>>\(",
-                         r"emu_launch(\2, \3, \1, ", src)
-        assert n and "<<<" not in src
-        (out / f"{name}.cpp").write_text(src)
-        procs[name] = subprocess.Popen(
-            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             "-I", str(SHIM), "-I", str(CSRC), "-o",
-             str(out / f"lib{name}.so"), str(out / f"{name}.cpp")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    loaded = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0 and b"c++20" in log.lower():
-            pytest.skip("needs a g++ that knows -std=c++20")
-        assert proc.returncode == 0, log.decode(errors="replace")
-        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes, fn.restype = SIGNATURES[name], ctypes.c_int
-        loaded[name] = fn
-    return loaded
+    fns = emulate.build(
+        {name: emulate.kernel_source(name) for name in SIGNATURES},
+        tmp_path_factory.mktemp("emulated"),
+        {name: {f"{name}_launch": sig} for name, sig in SIGNATURES.items()})
+    return {name: fns[f"{name}_launch"] for name in SIGNATURES}
 
 
 def _img(shape, fast_type, seed, integer=True):
