@@ -31,6 +31,10 @@ Phases, each of which exits non-zero on failure:
      calls) and its kernel alone by torch.profiler (`device_ms`): the
      margin kernel per circle type, the dense plane kernel at 128, 256 and
      512 bits beside its shared-load floor;
+     The match kernel is also held against its twin, and timed, at 16
+     words (FREAK's 512 bits) at the swap-set paths' shapes: the stereo
+     and inter-frame launches (2304 × 2304) and the tracker's association
+     (2304 × 4608, from a short windowed FREAK run);
   3. the VO path: `vo.run_sequence` over 20 synthetic KITTI frames at full
      width with the benchmark configuration (20, not the 40 of the first
      version of this script, so that the whole script keeps its run time
@@ -41,8 +45,20 @@ Phases, each of which exits non-zero on failure:
   4. the first 3 frames again on the CPU (plain twins, same RANSAC seed):
      identical detections, keypoints, stereo and track counts, poses
      within 1e-4;
+  4b. the VO descriptor swap set: `vo.run_sequence` at full width over
+     `SWAP_FRAMES` frames for each of orb, brisk, freak, surf, surf_ext and
+     brief with sub-pixel refinement, launch counters reset before and
+     read after each (1 grid launch a frame; 2 match launches a frame for
+     the binary descriptors, none for SURF, whose matches run on the L2
+     distance matrix; BRIEF's kernel only for brief), the trajectory
+     checked as in phase 3, ms/frame (best of 3); then `CPU_FRAMES`
+     frames of each on the CPU: detections equal, keypoints equal (within
+     `SUBPIX_TOL` px with sub-pixel refinement), binary descriptors with
+     at most `BIT_SHARE` of their bits differing, SURF's within
+     `SURF_TOL`, counts and poses as stated beside each;
   5. the service path: `services.single_image_detection` over every FAST
-     (354), ORB (270) and BRISK (88) ID of the detector table on frame 0's
+     (354), ORB (270), BRISK (88) and SURF (432) ID of the detector table
+     on frame 0's
      pair, then `get_stereo_features` + `stereo_matching` for a (FAST,
      BRIEF-32) and a (FAST, ORB) ID pair; counters reset before and read
      after (6 margin launches, one detect launch per pyramid level, octave
@@ -55,7 +71,8 @@ Phases, each of which exits non-zero on failure:
      trajectory
      within 5 % of the true motion, ms/frame; the match kernel held
      against its twin at the tracker's 2304 × 4608 association; first 3
-     frames against the CPU;
+     frames against the CPU; then `WINDOW_SURF_FRAMES` frames with SURF (a
+     float landmark store, no match launch), checked the same way;
   7. a JSON line describing every kernel, the card line, and as the last
      line {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
@@ -74,8 +91,21 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FRAMES = 20            # VO path
 WINDOW_FRAMES = 40     # windowed path
+SWAP_FRAMES = 10       # each descriptor of the swap set
+WINDOW_SURF_FRAMES = 10
 CPU_FRAMES = 3
 POSE_TOL = 1e-4      # card vs CPU: float32 geometry summed in another order
+# card vs CPU on the swap set: CUDA's sin/cos/atan2 and reductions round
+# otherwise than the CPU's, so a rotated sample can land a hair away and a
+# bit near a tie flip (ORB, BRISK, FREAK), and SURF's subregion sums and
+# norm differ in the last places
+BIT_SHARE = 1e-3
+SURF_TOL = 1e-5
+SUBPIX_TOL = 1e-3    # px
+COUNT_SHARE = 0.01   # stereo / track counts where descriptors differ
+SWAP_POSE_TOL = 1e-3  # poses where the match sets differ
+SWAP = (("orb", False), ("brisk", False), ("freak", False), ("surf", False),
+        ("surf_ext", False), ("brief", True))
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor
 # float32 ops/s.
@@ -236,6 +266,21 @@ def fast_ops_seconds(per_pixel: tuple[int, int], pixels: int) -> float:
     the dispatch of all the operations, whichever takes longer."""
     minmax, adds = per_pixel
     return pixels * max(minmax / MINMAX_OPS_S, (minmax + adds) / CORE_OPS_S)
+
+
+def match_work(nq: int, nt: int, nw: int):
+    """(bytes, operations, (bytes s, operations s)) of one match launch of
+    nq queries against nt trains, nw words each: every input read once,
+    every output written once.  The popcounts run on the tensor cores (an
+    AND and a count per bit) and the CUDA cores keep the gate, key and min
+    operations; the two pipes issue side by side, so the operations take
+    the longer of the two."""
+    pairs = nq * nt
+    by = (nq + nt) * (nw * 4 + 8 + 1) + nq * 12 + nt * 8
+    ops = pairs * (2 * 32 * nw + MATCH_CORE_OPS)
+    return by, ops, (by / HBM_BYTES_S, max(
+        pairs * 2 * 32 * nw / TENSOR_INT_OPS_S,
+        pairs * MATCH_CORE_OPS / CORE_OPS_S))
 
 
 def features_close(a, b, tol):
@@ -520,22 +565,50 @@ def main() -> int:
                   f"match_reduce ({mode}): too few ungated rows")
         nq, nw = cases["stereo"][0][0].shape
         nt = cases["stereo"][0][1].shape[0]
-        pairs = nq * nt
-        by = (nq + nt) * (nw * 4 + 8 + 1) + nq * 12 + nt * 8
-        # the popcounts run on the tensor cores (an AND and a count per
-        # bit); the CUDA cores keep the gate, key and min operations.  The
-        # two pipes issue side by side, so the bound is the longer of them
-        ops = pairs * (2 * 32 * nw + MATCH_CORE_OPS)
-        ops_s = max(pairs * 2 * 32 * nw / TENSOR_INT_OPS_S,
-                    pairs * MATCH_CORE_OPS / CORE_OPS_S)
+        by, ops, bound_s = match_work(nq, nt, nw)
+
+        # the same kernel at 16 words, FREAK's 512 bits (BRISK's are as
+        # wide): frame 0's stereo pair and frame 1's left features against
+        # frame 0's, as the swap set's paths give them
+        cfg16 = cfg.replace(descriptor="freak")
+        b16 = vo.DESCRIPTORS["freak"]["border"]
+        f0l, f0r = grid.detect_pair(imgs[0], imgs[1], s0.thresholds_l,
+                                    s0.thresholds_r, cfg.grid)
+        k16l, k16r = (k.replace(valid=k.valid & brief.valid_mask(
+            k.xy, W, H, border=b16)) for k in (f0l.keypoints, f0r.keypoints))
+        k16l, k16r, d16l, d16r = vo._describe(imgs[0], imgs[1], k16l, k16r,
+                                              cfg16)
+        t1, _ = vo.vo_step(vo.init_state(rig, cfg16, device=dev), lefts[0],
+                           rights[0], rig, cfg16)
+        t2, _ = vo.vo_step(t1, lefts[1], rights[1], rig, cfg16)
+        cases16 = {
+            "stereo": ((d16l.words(), d16r.words(), k16l.xy, k16r.xy,
+                        k16l.valid, k16r.valid), cases["stereo"][1]),
+            "roi": ((t2.prev.packed, t1.prev.packed, t2.prev.kps.xy,
+                     t1.prev.kps.xy, t2.prev.kps.valid, t1.prev.kps.valid),
+                    cases["roi"][1])}
+        times16 = {}
+        for mode, (args, kw) in cases16.items():
+            check(args[0].shape == (cfg.grid.capacity, 16),
+                  f"16-word match input shape {tuple(args[0].shape)}")
+            times16[mode] = match_case(args, kw, f"{mode}, 16 words")
+            check(int((match_reduce.match_reduce(*args, **kw)[0]
+                       < match.BIG / 2).sum()) > 100,
+                  f"match_reduce ({mode}, 16 words): too few ungated rows")
+
         kernels.append(dict(
             name="match_reduce", route="cuda",
             source="front_end_tpu_torch/csrc/match_reduce.cu",
             replaces="front_end_tpu/ops/pallas/match_kernel.py:110",
-            max_abs_err=max(v["err"] for v in times.values()),
+            max_abs_err=max(v["err"] for v in list(times.values())
+                            + list(times16.values())),
             ms=times["stereo"]["ms"], plain_ms=times["stereo"]["plain"],
             ms_roi=times["roi"]["ms"], plain_ms_roi=times["roi"]["plain"],
-            bytes=by, ops=ops, bound_s=(by / HBM_BYTES_S, ops_s),
+            ms_16w=times16["stereo"]["ms"],
+            plain_ms_16w=times16["stereo"]["plain"],
+            ms_roi_16w=times16["roi"]["ms"],
+            plain_ms_roi_16w=times16["roi"]["plain"],
+            bytes=by, ops=ops, bound_s=bound_s,
             library_ms=None))
 
         # ---- the dense FAST kernels at the service path's shapes -------
@@ -738,15 +811,121 @@ def main() -> int:
               f"equal, pose max diff {dpose:.2e} (tolerance {POSE_TOL})",
               flush=True)
 
+        # ---- phase 4b: the VO descriptor swap set -------------------
+        Ls, Rs = LW[:SWAP_FRAMES], RW[:SWAP_FRAMES]
+        swap_ms = {}
+        for name, use_subpix in SWAP:
+            label = name + ("+subpix" if use_subpix else "")
+            c = cfg.replace(descriptor=name, subpix=use_subpix)
+            binary = c.desc_norm == "hamming"
+            torch.cuda.synchronize()
+            reset_counts()
+            s = vo.init_state(rig, c, seed=0, device=dev)
+            s, o = vo.run_sequence(s, Ls, Rs, rig, c)
+            torch.cuda.synchronize()
+            launches = by_path[f"vo {label}"] = read_counts()
+            n = SWAP_FRAMES
+            expect = {"fast_grid": n, "brief_planes": 0,
+                      "brief_keypoints": n if name == "brief" else 0,
+                      "match_reduce": 2 * n if binary else 0,
+                      "fast_detect": 0, "fast_margins": 0}
+            check(launches == expect,
+                  f"{label}: launches {launches}, want {expect}")
+            check((s.prev.packed is None) == (not binary)
+                  and s.prev.bits.shape == (cfg.grid.capacity, c.desc_dim),
+                  f"{label}: descriptor layout")
+            poses = o.pose.cpu()
+            check(bool(torch.isfinite(poses).all()), f"{label}: non-finite "
+                  "pose")
+            ok_frac = float(o.motion_ok.float().mean())
+            check(ok_frac >= 0.9, f"{label}: motion_ok on {ok_frac:.0%}")
+            t_final = poses[-1, :3, 3].double()
+            t_true = torch.tensor([(n - 1) * step_m, 0.0, 0.0],
+                                  dtype=torch.float64)
+            drift = float((t_final - t_true).norm())
+            rot = float(se3.rotation_geodesic_error(poses[-1, :3, :3],
+                                                    torch.eye(3)))
+            check(drift < 0.05 * float(t_true.norm()) and rot < 0.01,
+                  f"{label}: final position {t_final.tolist()} vs "
+                  f"{t_true.tolist()}, rotation error {rot}")
+            timed = []
+            for _ in range(3):
+                st = vo.init_state(rig, c, seed=0, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vo.run_sequence(st, Ls, Rs, rig, c)
+                torch.cuda.synchronize()
+                timed.append((time.perf_counter() - t0) / n * 1e3)
+            swap_ms[label] = min(timed)
+            print(f"VO {label}: {n} frames, launches {launches}, motion_ok "
+                  f"{ok_frac:.0%}, drift {drift:.4f} m, rot {rot:.2e} rad, "
+                  f"mean stereo {float(o.n_stereo.float().mean()):.0f}, "
+                  f"inliers {float(o.n_inliers.float().mean()):.0f}; "
+                  f"{swap_ms[label]:.3f} ms/frame (runs "
+                  f"{[round(x, 3) for x in timed]}; brief "
+                  f"{ms_frame:.3f} in phase 3) [{card}]", flush=True)
+
+            # the same frames on the CPU
+            res = {}
+            for d in ("cuda", "cpu"):
+                st = vo.init_state(rig, c, seed=0, device=d)
+                res[d] = vo.run_sequence(st, lefts[:CPU_FRAMES],
+                                         rights[:CPU_FRAMES], rig, c)
+            (sg, og), (sc, oc) = res["cuda"], res["cpu"]
+            for f in ("n_detect_l", "n_detect_r"):
+                check(torch.equal(getattr(og, f).cpu(), getattr(oc, f)),
+                      f"{label}: card vs CPU {f}")
+            kp_diff = float((sg.prev.kps.xy.cpu() - sc.prev.kps.xy).abs()
+                            .max())
+            check(torch.equal(sg.prev.kps.valid.cpu(), sc.prev.kps.valid)
+                  and torch.equal(sg.prev.kps.score.cpu(), sc.prev.kps.score)
+                  and kp_diff <= (SUBPIX_TOL if use_subpix else 0.0),
+                  f"{label}: card vs CPU keypoints (xy differ by {kp_diff})")
+            if binary:
+                desc_diff = float((sg.prev.bits.cpu() != sc.prev.bits)
+                                  .float().mean())
+                desc_tol, what = BIT_SHARE, "share of bits differing"
+            else:
+                desc_diff = float((sg.prev.bits.cpu() - sc.prev.bits).abs()
+                                  .max())
+                desc_tol, what = SURF_TOL, "largest value difference"
+            check(desc_diff <= desc_tol, f"{label}: card vs CPU descriptors, "
+                  f"{what} {desc_diff} (tolerance {desc_tol})")
+            exact = desc_diff == 0.0 and kp_diff == 0.0
+            count_diff = 0.0
+            for f in ("n_stereo", "n_tracks"):
+                a, b = getattr(og, f).cpu(), getattr(oc, f)
+                count_diff = max(count_diff, float(
+                    ((a - b).abs() / b.clamp(min=1)).max()))
+            dpose = float((og.pose.cpu() - oc.pose).abs().max())
+            count_tol = 0.0 if exact else COUNT_SHARE
+            pose_tol = POSE_TOL if count_diff == 0.0 else SWAP_POSE_TOL
+            check(count_diff <= count_tol and dpose <= pose_tol,
+                  f"{label}: card vs CPU stereo/track counts differ by "
+                  f"{count_diff:.2%} (tolerance {count_tol:.0%}), poses by "
+                  f"{dpose} (tolerance {pose_tol})")
+            print(f"VO {label} cpu vs card: {CPU_FRAMES} frames, detections "
+                  f"equal, keypoints differ by {kp_diff:.2e} px, {what} "
+                  f"{desc_diff:.2e} (tolerance {desc_tol}), stereo/track "
+                  f"counts by {count_diff:.2%} (tolerance {count_tol:.0%}), "
+                  f"pose max diff {dpose:.2e} (tolerance {pose_tol})",
+                  flush=True)
+
         # ---- phase 5: the service path ------------------------------
         dtab = features.detector_table()
         fam_ids = {f: features.ids_for(f, dtab)
-                   for f in ("FAST", "ORB", "BRISK")}
+                   for f in ("FAST", "ORB", "BRISK", "SURF")}
         check({f: len(v) for f, v in fam_ids.items()}
-              == {"FAST": 354, "ORB": 270, "BRISK": 88}, "detector table")
-        sweep = fam_ids["FAST"] + fam_ids["ORB"] + fam_ids["BRISK"]
+              == {"FAST": 354, "ORB": 270, "BRISK": 88, "SURF": 432},
+              "detector table")
+        sweep = sum(fam_ids.values(), [])
+        check(len(sweep) == 1144, f"{len(sweep)} swept IDs")
+        surf_groups = {(dtab[i]["Param"]["n_octaves"],
+                        dtab[i]["Param"]["n_octave_layers"])
+                       for i in fam_ids["SURF"]}
         # one margin launch per circle type and image; one detect launch
-        # per pyramid level (ORB layout) or octave (BRISK) and image
+        # per pyramid level (ORB layout) or octave (BRISK) and image; SURF's
+        # Hessian maps launch none of the kernels
         orb_groups = {(dtab[i]["Param"]["n_levels"],
                        dtab[i]["Param"]["scale_factor"],
                        dtab[i]["Param"]["edge_threshold"])
@@ -772,16 +951,19 @@ def main() -> int:
               f"{want_margins} = 2 images x {len(types)} circle types), "
               f"fast_detect {got_counts['fast_detect']} (derived "
               f"{want_detect} = 2 images x levels of {len(orb_groups)} ORB "
-              f"layouts + octaves of {len(brisk_groups)} BRISK layouts)",
-              flush=True)
+              f"layouts + octaves of {len(brisk_groups)} BRISK layouts); "
+              f"{len(surf_groups)} SURF layouts", flush=True)
         check(got_counts["fast_margins"] == want_margins
               and got_counts["fast_detect"] == want_detect,
               f"service launches {got_counts}")
         check(all(r["supported"] for r in recs), "an ID came back unsupported")
         check([r["detID"] for r in recs] == sweep, "record order")
         check(not any(r["approximate"] for r in recs if
-                      dtab[r["detID"]]["Name"] != "ORB"),
+                      dtab[r["detID"]]["Name"] in ("FAST", "BRISK")),
               "a FAST/BRISK record flagged approximate")
+        n_approx = {f: sum(r["approximate"] for r in recs
+                           if dtab[r["detID"]]["Name"] == f)
+                    for f in ("ORB", "SURF")}
         rec_of = {r["detID"]: r for r in recs}
         fam_ms = {}
         for fam, ids in fam_ids.items():
@@ -789,7 +971,8 @@ def main() -> int:
             fam_ms[fam] = 1e3 * sum(secs) / len(ids)
         print("service: ms per swept ID (both images): "
               + ", ".join(f"{f} {v:.3f}" for f, v in fam_ms.items())
-              + f" [{card}]", flush=True)
+              + f" [{card}]; records flagged approximate {n_approx}",
+              flush=True)
         # counts fall as the threshold rises wherever that is a theorem:
         # without NMS always; with NMS for the 16-point circle, whose gate
         # IS its score (for 12/8 points a corner with a high score and a
@@ -833,10 +1016,13 @@ def main() -> int:
         print(f"service: card vs CPU level images, largest difference: ORB "
               f"levels >= 1 {level_diff:.3e}, BRISK octaves >= 1 "
               f"{oct_diff:.3e}", flush=True)
-        worst = {"FAST": 0.0, "ORB": 0.0, "BRISK": 0.0}
+        # SURF's integral image is exact on both (float64 scans of an
+        # integer image), its Hessian maps elementwise: exact
+        worst = {"FAST": 0.0, "ORB": 0.0, "BRISK": 0.0, "SURF": 0.0}
         for g, c in zip(recs, recs_cpu):
             fam = dtab[g["detID"]]["Name"]
-            exact = (fam == "FAST" or (fam == "ORB" and level_diff == 0.0)
+            exact = (fam in ("FAST", "SURF")
+                     or (fam == "ORB" and level_diff == 0.0)
                      or (fam == "BRISK" and oct_diff == 0.0))
             check(g["approximate"] == c["approximate"] or not exact,
                   f"{g['detID']}: approximate flag differs")
@@ -852,8 +1038,8 @@ def main() -> int:
                     check(rel <= 0.005 or abs(a["nPoints"] - b["nPoints"])
                           <= 2, f"{g['detID']} {side}: card {a} vs CPU {b}")
         print(f"service: card vs CPU, largest relative count difference "
-              f"{worst} (FAST exact; others exact when their level images "
-              f"are equal, else within 0.5 %)", flush=True)
+              f"{worst} (FAST and SURF exact; ORB and BRISK exact when their "
+              f"level images are equal, else within 0.5 %)", flush=True)
 
         ds = features.descriptor_table()
         det_id = [i for i in fam_ids["FAST"] if dtab[i]["Param"] == dict(
@@ -989,6 +1175,92 @@ def main() -> int:
         print(f"windowed cpu vs card: {CPU_FRAMES} frames, counts and store "
               f"slots equal, pose max diff {dpose:.2e} (tolerance "
               f"{POSE_TOL})", flush=True)
+
+        # the windowed path with SURF: a float landmark store, associations
+        # on the L2 distance matrix, no match launch
+        n_s = WINDOW_SURF_FRAMES
+        scfg = window_vo.WindowVOConfig.create(cfg.replace(descriptor="surf"))
+        check(scfg.tracker.norm == "l2" and scfg.tracker.desc_bits == 64,
+              f"windowed SURF configuration {scfg.tracker}")
+        reset_counts()
+        ws, wouts = window_vo.run_sequence(
+            window_vo.init_state(rig, scfg, seed=0, device=dev),
+            LW[:n_s], RW[:n_s], rig, scfg)
+        torch.cuda.synchronize()
+        by_path["window surf"] = read_counts()
+        expect = {"fast_grid": n_s, "brief_planes": 0, "brief_keypoints": 0,
+                  "match_reduce": 0, "fast_detect": 0, "fast_margins": 0}
+        check(by_path["window surf"] == expect,
+              f"windowed SURF launches {by_path['window surf']}, want "
+              f"{expect}")
+        store = ws.win.store
+        check(store.packed is None and store.bits.shape == (4608, 64)
+              and bool(store.valid.any()), "windowed SURF store layout")
+        norms = store.bits[store.valid].norm(dim=-1)
+        check(float((norms - 1).abs().max()) < 1e-4, "SURF store holds "
+              "descriptors that are not unit vectors")
+        ran = wouts.ba_ran.cpu().tolist()
+        check(ran == [False, False] + [True] * (n_s - 2),
+              f"windowed SURF: BA runs {ran}")
+        wposes = wouts.frame.pose.cpu()
+        check(bool(torch.isfinite(wposes).all()), "windowed SURF: non-finite "
+              "pose")
+        t_final = wposes[-1, :3, 3].double()
+        t_true = torch.tensor([(n_s - 1) * step_m, 0.0, 0.0],
+                              dtype=torch.float64)
+        drift = float((t_final - t_true).norm())
+        check(drift < 0.05 * float(t_true.norm()),
+              f"windowed SURF final position {t_final.tolist()} vs "
+              f"{t_true.tolist()}")
+        rms = wouts.ba_rms_px.cpu()[2:]
+        check(bool(torch.isfinite(rms).all()) and float(rms.max()) < 1.0,
+              f"windowed SURF ba_rms_px {rms.tolist()}")
+        check(int(wouts.n_tracked[1:].min()) > 100,
+              f"windowed SURF n_tracked {wouts.n_tracked.tolist()}")
+        t0 = time.perf_counter()
+        window_vo.run_sequence(
+            window_vo.init_state(rig, scfg, seed=0, device=dev),
+            LW[:n_s], RW[:n_s], rig, scfg)
+        torch.cuda.synchronize()
+        surf_window_ms = (time.perf_counter() - t0) / n_s * 1e3
+        print(f"windowed path, SURF: {n_s} frames, launches "
+              f"{by_path['window surf']}, BA on {sum(ran)} frames, drift "
+              f"{drift:.4f} m, ba_rms_px max {float(rms.max()):.3e}, "
+              f"n_tracked mean {float(wouts.n_tracked[1:].float().mean()):.0f}"
+              f", {surf_window_ms:.3f} ms/frame (second run) [{card}]",
+              flush=True)
+
+        # the tracker's association at 16 words: a short windowed FREAK run
+        # (3 match launches a frame), then its last frame against the store
+        n_f = 4
+        fcfg = window_vo.WindowVOConfig.create(cfg16)
+        reset_counts()
+        ws, wouts = window_vo.run_sequence(
+            window_vo.init_state(rig, fcfg, seed=0, device=dev),
+            LW[:n_f], RW[:n_f], rig, fcfg)
+        torch.cuda.synchronize()
+        by_path["window freak"] = read_counts()
+        expect = {"fast_grid": n_f, "brief_planes": 0, "brief_keypoints": 0,
+                  "match_reduce": 3 * n_f, "fast_detect": 0,
+                  "fast_margins": 0}
+        check(by_path["window freak"] == expect,
+              f"windowed FREAK launches {by_path['window freak']}, want "
+              f"{expect}")
+        check(int(wouts.n_tracked[1:].min()) > 100,
+              f"windowed FREAK n_tracked {wouts.n_tracked.tolist()}")
+        prev, store = ws.vo.prev, ws.win.store
+        recent = store.valid & (ws.win.frame_idx - store.last_seen
+                                <= fcfg.tracker.max_age)
+        args = (prev.packed, store.packed, prev.kps.xy, store.xy,
+                prev.kps.valid & prev.stereo_valid, recent)
+        check(args[0].shape == (2304, 16) and args[1].shape == (4608, 16),
+              f"16-word tracker match shapes {tuple(args[0].shape)}, "
+              f"{tuple(args[1].shape)}")
+        tr16 = match_case(args, dict(mode="roi", p1=fcfg.tracker.roi_box),
+                          "tracker association, 2304 x 4608, 16 words")
+        mk["max_abs_err"] = max(mk["max_abs_err"], tr16["err"])
+        mk["ms_tracker_16w"] = tr16["ms"]
+        mk["plain_ms_tracker_16w"] = tr16["plain"]
 
     line = []
     for k in kernels:

@@ -10,9 +10,9 @@ ranges exactly, so ID sets have the same cardinality per family and the
 same order as the JAX package's.
 
 `make_detector` / `make_descriptor` return callables for the families the
-port implements so far — detectors FAST, ORB, BRISK; descriptors BRIEF,
-ORB — and `(None, False)` for the rest (SURF, AKAZE detectors; SURF, FREAK
-descriptors), the factory's own miss contract.
+port implements — detectors FAST, ORB, BRISK, SURF; every descriptor
+family (BRIEF, SURF, FREAK, ORB) — and `(None, False)` for the rest (the
+AKAZE detectors), the factory's own miss contract.
 """
 from __future__ import annotations
 
@@ -173,6 +173,15 @@ def make_detector(settings) -> tuple[Callable | None, bool]:
                 fast_threshold=float(p["fast_threshold"]),
                 edge_threshold=int(p.get("edge_threshold", 31)))
         return detect, True
+    if name == "SURF":
+        from front_end_tpu_torch.ops import surf as surf_mod
+
+        def detect(img):
+            return surf_mod.detect_dense(
+                img, hessian_threshold=float(p["hessian_threshold"]),
+                n_octaves=int(p["n_octaves"]),
+                n_octave_layers=int(p["n_octave_layers"]))
+        return detect, True
     if name == "BRISK":
         from front_end_tpu_torch.ops import brisk as brisk_mod
 
@@ -197,6 +206,27 @@ def make_descriptor(settings) -> tuple[Callable | None, bool]:
         def describe(img, xy):
             sm = brief_mod.smooth(img)
             return brief_mod.describe_dense(sm, xy, int(p["bytes"]))
+        return describe, True
+    if name == "SURF":
+        from front_end_tpu_torch.ops import surf as surf_mod
+
+        def describe(img, xy):
+            return surf_mod.describe(img, xy, extended=bool(p["extended"]),
+                                     upright=bool(p["upright"]))
+        return describe, True
+    if name == "FREAK":
+        from front_end_tpu_torch.ops import freak as freak_mod
+        from front_end_tpu_torch.types import Keypoints
+
+        def describe(img, xy):
+            n = xy.shape[0]
+            kps = Keypoints(
+                xy=xy, score=torch.ones(n, device=xy.device),
+                angle=torch.zeros(n, device=xy.device),
+                valid=torch.ones(n, dtype=torch.bool, device=xy.device))
+            return freak_mod.describe_keypoints(
+                img.to(torch.float32), kps,
+                pattern_scale=float(p.get("pattern_scale", 1.0)))[1]
         return describe, True
     if name == "ORB":
         from front_end_tpu_torch.ops import brief as brief_mod

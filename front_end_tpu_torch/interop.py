@@ -16,7 +16,10 @@ The windowed path crosses the same way (`window_from_jax`,
                "track_len"}, "poses", "pose_valid", "frame_idx"}
 
 and the port adds what it keeps beside those fields (the packed words of
-the store's bits; the frame index as a host integer).
+binary descriptors; the frame index as a host integer).  Float (SURF)
+descriptors cross as they are and get no packed words.  The descriptor's
+norm comes from the configuration; a state that crosses without one is
+binary, and one whose descriptors are not all 0 or 1 is refused.
 """
 from __future__ import annotations
 
@@ -48,12 +51,24 @@ def _vo_config(cfg) -> VOConfig:
     return VOConfig(grid=GridConfig(**g), **c)
 
 
+def _packed(bits, norm: str | None):
+    """The packed words of binary descriptors, None for float ones;
+    `norm` None (no configuration) takes the descriptors as binary."""
+    if norm is None:
+        if not bool(((bits == 0) | (bits == 1)).all()):
+            raise ValueError("a state of float descriptors crosses with its "
+                             "configuration, which gives their norm")
+        norm = "hamming"
+    return pack_bits(bits) if norm == "hamming" else None
+
+
 def from_jax(rig=None, cfg=None, state=None, *, device="cuda", seed=0):
     """-> (StereoRig | None, VOConfig | None, VOState | None) on `device`.
 
     rig: {fx, fy, cx, cy, baseline, width, height}; cfg: the VOConfig
     fields with `grid` as a dict of GridConfig fields; state: the layout
-    above.  The port's RANSAC generator (not JAX's key) is seeded `seed`."""
+    above, its descriptors of `cfg`'s norm (binary without a cfg).  The
+    port's RANSAC generator (not JAX's key) is seeded `seed`."""
     out_rig = out_cfg = out_state = None
     if rig is not None:
         out_rig = StereoRig.create(**{k: rig[k] for k in _RIG})
@@ -70,7 +85,9 @@ def from_jax(rig=None, cfg=None, state=None, *, device="cuda", seed=0):
                           score=_t(k["score"], dev, f32),
                           angle=_t(k["angle"], dev, f32),
                           valid=_t(k["valid"], dev, torch.bool)),
-            bits=bits, packed=pack_bits(bits), X=_t(p["X"], dev, f32),
+            bits=bits,
+            packed=_packed(bits, out_cfg.desc_norm if out_cfg else None),
+            X=_t(p["X"], dev, f32),
             stereo_valid=_t(p["stereo_valid"], dev, torch.bool),
             uv4=_t(p["uv4"], dev, f32))
         out_state = VOState(
@@ -88,7 +105,8 @@ def window_from_jax(cfg=None, state=None, *, device="cuda"):
     cfg: the fields of a JAX `TrackerConfig`, or of a `WindowVOConfig`
     (recognised by its `vo` and `tracker` entries; `ba_mesh` must be None,
     the sharded BA is not ported).  state: a `WindowState` in the layout
-    of the module docstring."""
+    of the module docstring, its descriptors of the tracker's norm (binary
+    without a cfg)."""
     out_cfg = out_state = None
     if cfg is not None:
         c = dict(cfg)
@@ -106,8 +124,10 @@ def window_from_jax(cfg=None, state=None, *, device="cuda"):
         f32, i32, b8 = torch.float32, torch.int32, torch.bool
         st = state["store"]
         bits = _t(st["bits"], dev, f32)
+        norm = (None if out_cfg is None
+                else getattr(out_cfg, "tracker", out_cfg).norm)
         store = LandmarkStore(
-            Xw=_t(st["Xw"], dev, f32), bits=bits, packed=pack_bits(bits),
+            Xw=_t(st["Xw"], dev, f32), bits=bits, packed=_packed(bits, norm),
             xy=_t(st["xy"], dev, f32),
             last_seen=_t(st["last_seen"], dev, i32),
             valid=_t(st["valid"], dev, b8), meas=_t(st["meas"], dev, f32),

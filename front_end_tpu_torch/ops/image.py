@@ -125,3 +125,41 @@ def resize_linear(img, h: int, w: int):
         ww = torch.as_tensor(_resize_weights_np(W, w), device=img.device)
         out = out @ ww
     return out
+
+
+def integral_image(img):
+    """Summed-area table with a leading zero row and column: (..., H+1,
+    W+1) float32; the sum over [y0, y1) × [x0, x1) is ii[y1, x1] −
+    ii[y0, x1] − ii[y1, x0] + ii[y0, x0].
+
+    The JAX package scans in float32, exact only while every partial sum
+    stays below 2^24 (integer images up to 255 over about 65 k pixels); a
+    KITTI frame sums to ~10^8, where each library's scan rounds in its own
+    order.  The port scans in float64, exact for integer-valued images of
+    any realistic size, and rounds each entry to float32 once: the card and
+    the CPU give the same table, equal to the JAX package's wherever that
+    one is exact."""
+    ii = torch.cumsum(torch.cumsum(img.to(torch.float64), -1), -2)
+    return torch.nn.functional.pad(ii.to(torch.float32), (1, 0, 1, 0))
+
+
+def shift2d(img, dy: int, dx: int):
+    """Static shift with edge padding: out[y, x] = img[y+dy, x+dx]."""
+    return shift_views(img, abs(dy), abs(dx))(dy, dx)
+
+
+def bilinear_sample(img, xy):
+    """Bilinear interpolation of an (H, W) image at (N, 2) float (x, y),
+    clamped to [0, W − 1.001] × [0, H − 1.001] (the JAX package's form)."""
+    H, W = img.shape[-2:]
+    x = xy[:, 0].clamp(0.0, W - 1.001)
+    y = xy[:, 1].clamp(0.0, H - 1.001)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx, fy = x - x0, y - y0
+    flat = img.reshape(-1)
+    i00 = y0 * W + x0
+    v00, v01 = flat[i00], flat[i00 + 1]
+    v10, v11 = flat[i00 + W], flat[i00 + W + 1]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v01)
+            + fy * ((1 - fx) * v10 + fx * v11))

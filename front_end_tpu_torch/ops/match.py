@@ -3,12 +3,15 @@
 The reference's three recipes — live stereo crossCheck with epipolar
 (and disparity) gate, StereoCamera kNN(2) + Lowe + per-train uniqueness,
 WindowMatcher inter-frame ROI + kNN + Lowe + uniqueness — on Hamming
-distances.  The recipes take their row and column reductions from the
-match kernel (`ops/kernels/match_reduce.py`: the CUDA kernel on the card,
-its plain twin on the CPU), so the (N, N) matrix is never built on the
-card; mutuality, Lowe and uniqueness are O(N) epilogues.  The matrix forms
-(`hamming_matrix`, the masks, `mutual_match`, `knn_lowe`) are kept for
-callers that hold a distance matrix.
+distances for binary descriptors and L2 distances for float ones (`norm`,
+the reference's `getMatcher` choice).  On Hamming distances the recipes
+take their row and column reductions from the match kernel
+(`ops/kernels/match_reduce.py`: the CUDA kernel on the card, its plain
+twin on the CPU), so the (N, N) matrix is never built on the card;
+mutuality, Lowe and uniqueness are O(N) epilogues.  On L2 distances they
+build the matrix as the JAX package does — sqrt(‖a‖² + ‖b‖² − 2a·b) from
+one float32 matrix product (TF32 off under the entry points' pin) plus
+additive gate masks — and reduce it with `mutual_match` / `knn_lowe`.
 """
 from __future__ import annotations
 
@@ -28,6 +31,22 @@ def hamming_matrix(da: Descriptors, db: Descriptors):
     with pinned_f32():
         ab = a @ b.T
     return a.sum(-1)[:, None] + b.sum(-1)[None, :] - 2.0 * ab
+
+
+def l2sq_matrix(a, b):
+    """(Na, D), (Nb, D) float -> (Na, Nb) squared L2 distances, clamped at
+    0 (the cancellation of ‖a‖² + ‖b‖² − 2a·b can go below)."""
+    with pinned_f32():
+        ab = a @ b.T
+    sa = (a * a).sum(-1)
+    sb = (b * b).sum(-1)
+    return (sa[:, None] + sb[None, :] - 2.0 * ab).clamp(min=0.0)
+
+
+def _l2_dist(kq: Keypoints, dq: Descriptors, kt: Keypoints, dt: Descriptors):
+    """L2 distance matrix with the validity mask added."""
+    return (torch.sqrt(l2sq_matrix(dq.bits, dt.bits))
+            + validity_mask(kq.valid, kt.valid))
 
 
 def validity_mask(valid_a, valid_b):
@@ -93,13 +112,14 @@ def unique_per_train(m: Matches, n_train: int) -> Matches:
 
 
 def _reduce(kq: Keypoints, dq: Descriptors, kt: Keypoints, dt: Descriptors,
-            norm: str, **gate):
-    if norm != "hamming":
-        raise NotImplementedError(
-            f"norm={norm!r}: float-descriptor matching is ported with the "
-            "off-path descriptors (ROADMAP Queue 1 item 9)")
+            **gate):
     return match_reduce(dq.words(), dt.words(), kq.xy, kt.xy, kq.valid,
                         kt.valid, **gate)
+
+
+def _check_norm(norm: str):
+    if norm not in ("hamming", "l2"):
+        raise ValueError(f"unknown norm {norm!r}")
 
 
 def stereo_match_live(kl: Keypoints, dl: Descriptors,
@@ -109,12 +129,19 @@ def stereo_match_live(kl: Keypoints, dl: Descriptors,
                       norm: str = "hamming") -> Matches:
     """The live_stereo recipe: crossCheck match with the epipolar (and
     optional disparity) gate fused in."""
+    _check_norm(norm)
+    if norm == "l2":
+        dist = _l2_dist(kl, dl, kr, dr) + epipolar_mask(kl, kr,
+                                                        epi_threshold)
+        if max_disparity is not None:
+            dist = dist + disparity_mask(kl, kr, max_disparity)
+        return mutual_match(dist)
     if max_disparity is not None:
         gate = dict(mode="stereo", p1=float(epi_threshold), p2=0.0,
                     p3=float(max_disparity))
     else:
         gate = dict(mode="epi", p1=float(epi_threshold))
-    d1, _d2, i1, _cm, col_arg = _reduce(kl, dl, kr, dr, norm, **gate)
+    d1, _d2, i1, _cm, col_arg = _reduce(kl, dl, kr, dr, **gate)
     return _mutual(d1, i1, col_arg)
 
 
@@ -124,7 +151,12 @@ def stereo_match_knn(kl: Keypoints, dl: Descriptors,
                      norm: str = "hamming") -> Matches:
     """The StereoCamera recipe: epipolar gate, kNN(2) + Lowe, per-train
     uniqueness."""
-    d1, d2, i1, _cm, _ca = _reduce(kl, dl, kr, dr, norm, mode="epi",
+    _check_norm(norm)
+    if norm == "l2":
+        m = knn_lowe(_l2_dist(kl, dl, kr, dr)
+                     + epipolar_mask(kl, kr, epi_threshold), ratio)
+        return unique_per_train(m, kr.capacity)
+    d1, d2, i1, _cm, _ca = _reduce(kl, dl, kr, dr, mode="epi",
                                    p1=float(epi_threshold))
     return unique_per_train(_lowe(d1, d2, i1, ratio), kr.capacity)
 
@@ -135,6 +167,10 @@ def interframe_match(kc: Keypoints, dc: Descriptors,
                      norm: str = "hamming") -> Matches:
     """WindowMatcher inter-frame recipe: ROI box gate, kNN(2) + Lowe,
     per-train uniqueness."""
-    d1, d2, i1, _cm, _ca = _reduce(kc, dc, kp, dp, norm, mode="roi",
+    _check_norm(norm)
+    if norm == "l2":
+        m = knn_lowe(_l2_dist(kc, dc, kp, dp) + roi_mask(kc, kp, box), ratio)
+        return unique_per_train(m, kp.capacity)
+    d1, d2, i1, _cm, _ca = _reduce(kc, dc, kp, dp, mode="roi",
                                    p1=float(box))
     return unique_per_train(_lowe(d1, d2, i1, ratio), kp.capacity)

@@ -5,14 +5,17 @@
 
 Stages (the JAX package's stage map):
   1. adaptive grid FAST on L and R, one grid-kernel launch for the pair
-  2. 9×9 box blur and dense BRIEF, one bitplane-kernel launch for the pair
-  3. stereo match: Hamming crossCheck + epipolar and disparity gates
-     (one match-kernel launch)
-  4. Q triangulation of the matched pairs
-  5. inter-frame match vs the previous left features: ROI + kNN + Lowe +
-     uniqueness (one match-kernel launch)
-  6. 3-point rigid RANSAC + LM polish
-  7. pose integration
+  2. optional sub-pixel refinement (`ops/subpix.py`, capped at 0.3 px)
+  3. description with the configured descriptor: BRIEF (one keypoint-
+     kernel launch for the pair), ORB, BRISK, FREAK (binary) or SURF /
+     SURF-extended (float, upright), after the descriptor's border mask
+  4. stereo match: crossCheck + epipolar and disparity gates (Hamming:
+     one match-kernel launch; SURF: the L2 distance matrix)
+  5. Q triangulation of the matched pairs
+  6. inter-frame match vs the previous left features: ROI + kNN + Lowe +
+     uniqueness (Hamming: one match-kernel launch; SURF: L2 matrix)
+  7. 3-point rigid RANSAC + LM polish
+  8. pose integration
 
 Every stage keeps static shapes; thresholds, the previous frame's
 features, the pose and the RANSAC generator ride in the carried state.
@@ -30,18 +33,33 @@ from front_end_tpu_torch.geometry.camera import StereoRig
 from front_end_tpu_torch.motion import lm as lm_mod
 from front_end_tpu_torch.motion import ransac as ransac_mod
 from front_end_tpu_torch.ops import brief as brief_mod
+from front_end_tpu_torch.ops import brisk as brisk_mod
+from front_end_tpu_torch.ops import freak as freak_mod
 from front_end_tpu_torch.ops import grid as grid_mod
 from front_end_tpu_torch.ops import match as match_mod
+from front_end_tpu_torch.ops import orb as orb_mod
+from front_end_tpu_torch.ops import subpix as subpix_mod
+from front_end_tpu_torch.ops import surf as surf_mod
 from front_end_tpu_torch.ops.dense_select import take_rows
 from front_end_tpu_torch.types import Descriptors, Keypoints
 from front_end_tpu_torch.utils.precision import f32_precision, resolve_device
 
-# Descriptors of this slice: both names are the dense BRIEF (the JAX
-# package's "brief_pallas" picks its Pallas kernel on a TPU; here "brief"
-# runs the CUDA kernel on the card).  The rest of the JAX registry is
-# ported with ROADMAP Queue 1 item 9.
-DESCRIPTORS = ("brief", "brief_pallas")
-_LATER = {"orb", "surf", "surf_ext", "freak", "brisk"}
+# The live descriptor registry of the JAX package (the reference's
+# benchmarked swap set plus BRISK): the matcher's norm, the width (None:
+# 8 * desc_bytes) and the sampling radius inside which keypoints are
+# dropped (None: BRIEF's).  "brief_pallas" picks a Pallas kernel on a TPU;
+# here both BRIEF names run the keypoint kernel on the card.
+DESCRIPTORS = {
+    "brief": dict(norm="hamming", dim=None, border=None),
+    "brief_pallas": dict(norm="hamming", dim=None, border=None),
+    "orb": dict(norm="hamming", dim=None, border=None),
+    "surf": dict(norm="l2", dim=64, border=24),
+    "surf_ext": dict(norm="l2", dim=128, border=24),
+    "freak": dict(norm="hamming", dim=512, border=30),
+    "brisk": dict(norm="hamming", dim=512, border=30),
+}
+# the sub-pixel refinement's cap on the distance it moves a keypoint (px)
+SUBPIX_MAX_SHIFT = 0.3
 
 
 @dataclass(frozen=True)
@@ -62,10 +80,6 @@ class VOConfig:
     min_track_inliers: int = 12
 
     def __post_init__(self):
-        if self.descriptor in _LATER:
-            raise NotImplementedError(
-                f"descriptor={self.descriptor!r} is ported with the off-path "
-                "descriptors (ROADMAP Queue 1 item 9)")
         if self.descriptor not in DESCRIPTORS:
             raise ValueError(f"unknown descriptor {self.descriptor!r}")
         if self.motion == "essential":
@@ -74,18 +88,15 @@ class VOConfig:
                 "egomotion (ROADMAP Queue 1 item 10)")
         if self.motion != "rigid":
             raise ValueError(f"unknown motion {self.motion!r}")
-        if self.subpix:
-            raise NotImplementedError(
-                "subpix=True is ported with ops/subpix.py (ROADMAP Queue 1 "
-                "item 9)")
 
     @property
     def desc_dim(self) -> int:
-        return 8 * self.desc_bytes
+        d = DESCRIPTORS[self.descriptor]["dim"]
+        return d if d is not None else 8 * self.desc_bytes
 
     @property
     def desc_norm(self) -> str:
-        return "hamming"
+        return DESCRIPTORS[self.descriptor]["norm"]
 
     def replace(self, **kw) -> "VOConfig":
         from dataclasses import replace
@@ -95,8 +106,10 @@ class VOConfig:
 class FrameFeatures(NamedTuple):
     """Per-frame feature state carried to the next step (capacity N)."""
     kps: Keypoints            # left keypoints
-    bits: torch.Tensor        # (N, D) left descriptor bits
-    packed: torch.Tensor      # (N, D/32) the same bits packed (uint32)
+    bits: torch.Tensor        # (N, D) left descriptors: bits, or SURF's
+    #                           float values
+    packed: torch.Tensor | None  # (N, D/32) uint32, the bits packed; None
+    #                           for float descriptors
     X: torch.Tensor           # (N, 3) stereo-triangulated landmarks
     stereo_valid: torch.Tensor  # (N,) had a stereo match
     uv4: torch.Tensor         # (N, 4) [ul, vl, ur, vr] of the stereo match
@@ -131,8 +144,9 @@ def empty_features(cfg: VOConfig, device) -> FrameFeatures:
     return FrameFeatures(
         kps=Keypoints.empty(n, device),
         bits=torch.zeros((n, d), dtype=f32, device=device),
-        packed=torch.zeros((n, d // 32), dtype=torch.int32,
-                           device=device).view(torch.uint32),
+        packed=(torch.zeros((n, d // 32), dtype=torch.int32,
+                            device=device).view(torch.uint32)
+                if cfg.desc_norm == "hamming" else None),
         X=torch.zeros((n, 3), dtype=f32, device=device),
         stereo_valid=torch.zeros(n, dtype=torch.bool, device=device),
         uv4=torch.zeros((n, 4), dtype=f32, device=device))
@@ -152,19 +166,61 @@ def init_state(rig: StereoRig, cfg: VOConfig, seed: int = 0,
         generator=torch.Generator().manual_seed(seed))
 
 
-def _extract_frame(left, right, tl, tr, rig: StereoRig, cfg: VOConfig):
-    """Stages 1-4: detection, description, stereo matching,
-    triangulation."""
-    detl, detr = grid_mod.detect_pair(left, right, tl, tr, cfg.grid)
-    kl, kr = detl.keypoints, detr.keypoints
-    kl = kl.replace(valid=kl.valid & brief_mod.valid_mask(
-        kl.xy, rig.width, rig.height))
-    kr = kr.replace(valid=kr.valid & brief_mod.valid_mask(
-        kr.xy, rig.width, rig.height))
-
+def _describe(left, right, kl, kr, cfg: VOConfig):
+    """Stage 3 -> (kl, kr, desc_left, desc_right); ORB sets the keypoints'
+    angles."""
+    name = cfg.descriptor
+    if name == "orb":
+        sml, smr = brief_mod.smooth(left), brief_mod.smooth(right)
+        angl = orb_mod.intensity_centroid_angle(left, kl.xy)
+        angr = orb_mod.intensity_centroid_angle(right, kr.xy)
+        kl, kr = kl.replace(angle=angl), kr.replace(angle=angr)
+        return (kl, kr, orb_mod.describe(sml, kl.xy, angl, cfg.desc_bytes),
+                orb_mod.describe(smr, kr.xy, angr, cfg.desc_bytes))
+    if name in ("surf", "surf_ext"):
+        # float descriptors, L2-matched (the reference's SURF and
+        # SURF_EXTENDED live configurations), upright
+        ext = name == "surf_ext"
+        return (kl, kr,
+                surf_mod.describe(left, kl.xy, extended=ext, upright=True),
+                surf_mod.describe(right, kr.xy, extended=ext, upright=True))
+    if name in ("freak", "brisk"):
+        # the pair's ring blurs once, for both the angle and the bits
+        mod = freak_mod if name == "freak" else brisk_mod
+        pair = mod.blurs(torch.stack([left, right]))
+        out = [kl, kr]
+        for i, (img, k) in enumerate(((left, kl), (right, kr))):
+            rings = [b[i] for b in pair]
+            ang = mod.orientations(img, k.xy, k.valid, ring_imgs=rings)
+            out.append(mod.describe(img, k.xy, ang, k.valid,
+                                    ring_imgs=rings))
+        return tuple(out)
     dl, dr = brief_mod.describe_pair(brief_mod.smooth(left),
                                      brief_mod.smooth(right), kl.xy, kr.xy,
                                      cfg.desc_bytes)
+    return kl, kr, dl, dr
+
+
+def _extract_frame(left, right, tl, tr, rig: StereoRig, cfg: VOConfig):
+    """Stages 1-5: detection, refinement, description, stereo matching,
+    triangulation."""
+    detl, detr = grid_mod.detect_pair(left, right, tl, tr, cfg.grid)
+    kl, kr = detl.keypoints, detr.keypoints
+    if cfg.subpix:
+        kl = kl.replace(xy=subpix_mod.corner_subpix(
+            left, kl.xy, kl.valid, max_shift=SUBPIX_MAX_SHIFT))
+        kr = kr.replace(xy=subpix_mod.corner_subpix(
+            right, kr.xy, kr.valid, max_shift=SUBPIX_MAX_SHIFT))
+    border = DESCRIPTORS[cfg.descriptor]["border"]
+    bkw = {} if border is None else dict(border=border)
+    kl = kl.replace(valid=kl.valid & brief_mod.valid_mask(
+        kl.xy, rig.width, rig.height, **bkw))
+    kr = kr.replace(valid=kr.valid & brief_mod.valid_mask(
+        kr.xy, rig.width, rig.height, **bkw))
+
+    kl, kr, dl, dr = _describe(left, right, kl, kr, cfg)
+    if cfg.desc_norm == "hamming":   # packed once, read by both matches
+        dl, dr = (Descriptors(d.bits, d.words()) for d in (dl, dr))
     m = match_mod.stereo_match_live(
         kl, dl, kr, dr, epi_threshold=cfg.epi_threshold,
         max_disparity=cfg.max_disparity, norm=cfg.desc_norm)
@@ -181,10 +237,11 @@ def _extract_frame(left, right, tl, tr, rig: StereoRig, cfg: VOConfig):
 def _estimate_motion(sampler, cur: FrameFeatures, prev: FrameFeatures,
                      rig: StereoRig, cfg: VOConfig):
     """Stages 5-6: inter-frame association + egomotion."""
+    norm = cfg.desc_norm
     tm = match_mod.interframe_match(
-        cur.kps, Descriptors(bits=cur.bits, packed=cur.packed),
-        prev.kps, Descriptors(bits=prev.bits, packed=prev.packed),
-        box=cfg.track_box, ratio=cfg.lowe_ratio, norm=cfg.desc_norm)
+        cur.kps, Descriptors(cur.bits, cur.packed, norm),
+        prev.kps, Descriptors(prev.bits, prev.packed, norm),
+        box=cfg.track_box, ratio=cfg.lowe_ratio, norm=norm)
     Xp = take_rows(prev.X, tm.train_idx)
     uvp = take_rows(prev.uv4, tm.train_idx)
     pair_valid = (tm.valid & cur.stereo_valid
@@ -242,7 +299,9 @@ def vo_step(state: VOState, left, right, rig: StereoRig, cfg: VOConfig,
 
 def swap_descriptor(state: VOState, new_cfg: VOConfig) -> VOState:
     """Mid-stream descriptor reconfig: pose, thresholds, frame index and
-    generator carry over; the feature memory restarts at the new width."""
+    generator carry over; the feature memory restarts at the new width and
+    layout (descriptor families are not comparable across the swap, so the
+    first frame after it finds no track and keeps the pose)."""
     return state._replace(prev=empty_features(new_cfg, state.pose.device))
 
 

@@ -90,7 +90,8 @@ def window_vo_step(state: WindowVOState, left, right, rig: StereoRig,
     pose_cw = se3.invert_homog(new_vo.pose)   # camera_from_world
 
     upd = tracker_mod.update(
-        state.win, cur.kps, Descriptors(cur.bits, cur.packed), cur.X,
+        state.win, cur.kps,
+        Descriptors(cur.bits, cur.packed, cfg.vo.desc_norm), cur.X,
         cur.stereo_valid, cur.uv4, pose_cw, cfg.tracker, rig)
     win = upd.state
 

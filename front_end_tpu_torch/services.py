@@ -21,13 +21,14 @@ from front_end_tpu_torch import features as features_mod
 from front_end_tpu_torch.ops import fast as fast_mod
 from front_end_tpu_torch.ops import grid as grid_mod
 from front_end_tpu_torch.ops import match as match_mod
+from front_end_tpu_torch.ops import surf as surf_mod
 from front_end_tpu_torch.types import Keypoints
 from front_end_tpu_torch.utils.precision import f32_precision, resolve_device
 
 # largest (K, H, W) float batch a vectorised stats pass may hold
 STATS_CHUNK_BYTES = 64 << 20
-# static top-k keypoint capacity behind the shared ORB response map
-SATURATION_CAP = {"ORBPYR": 2048}
+# static top-k keypoint capacity behind the shared ORB map
+ORB_MAP_CAPACITY = 2048
 
 
 def keypoint_stats(score_map) -> dict:
@@ -143,6 +144,18 @@ def _structural_response_fn(settings):
         def fn(img):
             return brisk_mod.detect_dense(img, threshold=1.0, n_octaves=no)
         return ("BRISK", no), fn, float(p.get("threshold", 30))
+    if name == "SURF":
+        # the NMS'd det(H) maxima; hessian_threshold only gates them, so
+        # one map per layout built at a tiny threshold serves the group,
+        # exact above the largest response its top-k's left out (`cut`;
+        # the records below it are flagged `approximate`)
+        no = int(p.get("n_octaves", 3))
+        nl = int(p.get("n_octave_layers", 2))
+
+        def fn(img):
+            return surf_mod.dense_map(img, hessian_threshold=1e-6,
+                                      n_octaves=no, n_octave_layers=nl)
+        return ("SURF", no, nl), fn, float(p.get("hessian_threshold", 100))
     return None, None, None
 
 
@@ -177,11 +190,14 @@ def single_image_detection(det_ids, left, right, return_kp: bool = False,
     record.  IDs that share a structural configuration are batched: the
     FAST family computes ONE margin-map pair per circle type and image
     (one margin-kernel launch) and evaluates every (threshold, nms) member
-    against it, so the full FAST sweep costs six kernel launches; ORB and
-    BRISK build one response map per pyramid layout.  A group's time is
+    against it, so the full FAST sweep costs six kernel launches; ORB,
+    BRISK and SURF build one response map per pyramid or octave layout.
+    A group's time is
     spread evenly over its members.  `approximate` flags records whose
-    count may be cut by the static keypoint capacity behind an ORB map.
-    Families that are not ported yet come back `supported: False`."""
+    count may be cut by the static keypoint capacity behind an ORB map, or
+    is cut by the per-layer capacity behind a SURF map (JAX's pixel-count
+    probe misses the SURF case: see `surf.detect`'s `cut`).  Families that are not ported yet (AKAZE) come back
+    `supported: False`."""
     dev = resolve_device(device)
     left = torch.as_tensor(left).to(device=dev, dtype=torch.float32)
     right = torch.as_tensor(right).to(device=dev, dtype=torch.float32)
@@ -204,6 +220,8 @@ def single_image_detection(det_ids, left, right, return_kp: bool = False,
         _sync(dev)
         t0 = time.perf_counter()
         sl, sr = fn(left), fn(right)
+        if key[0] == "SURF":
+            (sl, cut_l), (sr, cut_r) = sl, sr
         if key[0] == "FAST2":
             thrs = [t for _, (t, _n) in members]
             nmsf = [n for _, (_t, n) in members]
@@ -215,22 +233,22 @@ def single_image_detection(det_ids, left, right, return_kp: bool = False,
             stats_r = _map_stats_batch(sr, thrs)
         _sync(dev)
         dt = (time.perf_counter() - t0) / max(len(members), 1)
-        # the saturation probe fetches from the device, so it stays
+        # the saturation probes fetch from the device, so they stay
         # outside the timed region
-        saturated_below = None
-        cap = SATURATION_CAP.get(key[0])
-        if cap is not None:
+        flags = [False] * len(members)
+        if key[0] == "SURF":
+            cut = max(float(cut_l), float(cut_r))
+            flags = [float(t) < cut for t in thrs]
+        elif key[0] == "ORBPYR":
             nz = max(int((sl > 0).sum()), int((sr > 0).sum()))
-            if nz >= cap:
-                saturated_below = min(float(sl[sl > 0].min()),
-                                      float(sr[sr > 0].min()))
+            if nz >= ORB_MAP_CAPACITY:
+                smin = min(float(sl[sl > 0].min()), float(sr[sr > 0].min()))
+                flags = [float(t) <= smin for t in thrs]
         stats_l = [a.cpu() for a in stats_l]
         stats_r = [a.cpu() for a in stats_r]
         for i, (det_id, member) in enumerate(members):
-            approx = (saturated_below is not None
-                      and not isinstance(member, tuple)
-                      and float(member) <= saturated_below)
-            rec = {"detID": det_id, "supported": True, "approximate": approx,
+            rec = {"detID": det_id, "supported": True,
+                   "approximate": flags[i],
                    "processingTime": [{"label": "detection", "seconds": dt}],
                    "leftFeatures": _features(stats_l, i),
                    "rightFeatures": _features(stats_r, i)}

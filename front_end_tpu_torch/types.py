@@ -40,13 +40,23 @@ class Keypoints:
 
 @dataclass
 class Descriptors:
-    """Binary descriptors in two layouts: `bits` (N, D) float32 in {0, 1}
-    and `packed` (N, D // 32) uint32.  Either may be None."""
+    """Descriptors of N keypoints.
+
+    Binary (`norm="hamming"`, matched by Hamming distance): `bits` (N, D)
+    float32 in {0, 1} and `packed` (N, D // 32) uint32, either may be None.
+    Float (`norm="l2"`, SURF; matched by L2 distance): `bits` (N, D)
+    float32 values and `packed` None — float descriptors have no packed
+    layout."""
     bits: torch.Tensor | None
     packed: torch.Tensor | None = None
+    norm: str = "hamming"
 
     def words(self) -> torch.Tensor:
-        """The packed layout, packing `bits` when it was not kept."""
+        """The packed layout, packing `bits` when it was not kept.  Raises
+        for float descriptors: packing would read their values as bits."""
+        if self.norm != "hamming":
+            raise TypeError(f"{self.norm!r} descriptors are float values; "
+                            "they have no packed layout")
         return self.packed if self.packed is not None else pack_bits(
             self.bits)
 

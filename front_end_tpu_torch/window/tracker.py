@@ -2,11 +2,12 @@
 (counterpart of `front_end_tpu/window/tracker.py`).
 
 A FIXED-CAPACITY landmark store (capacity M) where every row is a
-landmark slot carrying its world position, its current binary descriptor
-(as bits and packed words, kept in step), its last-seen frame index and a
-per-window-slot measurement history (W, 4) + visibility.  Track
-association is one Hamming match of the current frame's descriptors
-against the store (ROI-gated; the match kernel on the card); unmatched
+landmark slot carrying its world position, its current descriptor (binary:
+bits and packed words, kept in step; SURF: float values, no words), its
+last-seen frame index and a per-window-slot measurement history (W, 4) +
+visibility.  Track association is one match of the current frame's
+descriptors against the store (ROI-gated; Hamming on the match kernel on
+the card, or the L2 distance matrix for float descriptors); unmatched
 stereo features claim recycled slots — dead slots first, then expired
 ones, each tier in index order.  The window is a shift register over the
 W measurement slots: evict the oldest.
@@ -50,8 +51,9 @@ class TrackerConfig:
 
 class LandmarkStore(NamedTuple):
     Xw: torch.Tensor          # (M, 3) world-frame position
-    bits: torch.Tensor        # (M, D) current descriptor {0,1}
-    packed: torch.Tensor      # (M, D/32) uint32, the same bits packed
+    bits: torch.Tensor        # (M, D) current descriptor: {0,1} or floats
+    packed: torch.Tensor | None  # (M, D/32) uint32, the bits packed; None
+    #                           for float descriptors (norm "l2")
     xy: torch.Tensor          # (M, 2) last observed left-image position
     last_seen: torch.Tensor   # (M,) int32 frame index, -1 = free
     valid: torch.Tensor       # (M,) bool
@@ -83,8 +85,9 @@ def init_state(cfg: TrackerConfig, device="cuda") -> WindowState:
     store = LandmarkStore(
         Xw=torch.zeros((M, 3), dtype=f32, device=dev),
         bits=torch.zeros((M, D), dtype=f32, device=dev),
-        packed=torch.zeros((M, D // 32), dtype=i32,
-                           device=dev).view(torch.uint32),
+        packed=(torch.zeros((M, D // 32), dtype=i32,
+                            device=dev).view(torch.uint32)
+                if cfg.norm == "hamming" else None),
         xy=torch.full((M, 2), -1e6, dtype=f32, device=dev),
         last_seen=torch.full((M,), -1, dtype=i32, device=dev),
         valid=torch.zeros(M, dtype=torch.bool, device=dev),
@@ -117,7 +120,10 @@ def _hit(slot, M: int):
 
 
 def _put_words(dst, slot, words):
-    """`put_rows` for packed uint32 words, through their int32 view."""
+    """`put_rows` for packed uint32 words, through their int32 view (None
+    where float descriptors keep no words)."""
+    if dst is None or words is None:
+        return None
     return put_rows(dst.view(torch.int32), slot,
                     words.view(torch.int32)).view(torch.uint32)
 
@@ -136,7 +142,8 @@ def update(state: WindowState, kps: Keypoints, desc: Descriptors, X_cam,
     N = kps.capacity
     fidx = state.frame_idx
     dev = pose_cur.device
-    words = desc.words()
+    norm = cfg.norm
+    words = desc.words() if norm == "hamming" else None
 
     store, poses, pose_valid = _advance_window(store, state.poses,
                                                state.pose_valid)
@@ -149,9 +156,9 @@ def update(state: WindowState, kps: Keypoints, desc: Descriptors, X_cam,
     lm_kps = Keypoints(xy=store.xy, score=zeros, angle=zeros, valid=recently)
     cur_valid = kps.valid & stereo_valid
     m = match_mod.interframe_match(
-        kps.replace(valid=cur_valid), Descriptors(desc.bits, words), lm_kps,
-        Descriptors(store.bits, store.packed), box=cfg.roi_box,
-        ratio=cfg.lowe_ratio, norm=cfg.norm)
+        kps.replace(valid=cur_valid), Descriptors(desc.bits, words, norm),
+        lm_kps, Descriptors(store.bits, store.packed, norm), box=cfg.roi_box,
+        ratio=cfg.lowe_ratio, norm=norm)
     tracked = m.valid & cur_valid                          # (N,)
     slot_of_feature = torch.where(tracked, m.train_idx, -1)
 

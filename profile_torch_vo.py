@@ -3,7 +3,13 @@
 `window_vo_step`, goes, on one CUDA card.
 
     python3 profile_torch_vo.py [--frames 20] [--path vo|window|sweep]
+                                [--descriptor NAME] [--subpix]
 
+`--descriptor` picks the VO descriptor (brief, orb, brisk, freak, surf,
+surf_ext; default brief) and `--subpix` turns on the sub-pixel refinement;
+the stages follow: `subpix.corner_subpix`, each descriptor's orientation
+and description functions, and the two matches, which run on the L2
+distance matrix for SURF (marked [l2]) and on the match kernel otherwise.
 `--path window` drives `window_vo.run_sequence` with
 `WindowVOConfig.create` defaults and adds `tracker.update` and
 `tracker.run_window_ba` to the stages (a stage called inside another
@@ -18,9 +24,9 @@ drives) it prints:
   4. a `torch.profiler` window over 5 frames: kernel launches per frame,
      summed device kernel time per frame, the device's busy share of the
      wall time, and the top operators by host and by device time.
-`--path sweep` prints only the seconds of the 712-ID FAST/ORB/BRISK
+`--path sweep` prints only the seconds of the 1144-ID FAST/ORB/BRISK/SURF
 `services.single_image_detection` sweep on frame 0's pair, three runs
-after a warm-up on every 40th ID.
+after a warm-up on every 40th ID, and ms per swept ID per family.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -40,23 +46,49 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from front_end_tpu_torch import features, services  # noqa: E402
 from front_end_tpu_torch.geometry.camera import kitti_rig  # noqa: E402
 from front_end_tpu_torch.motion import lm, ransac  # noqa: E402
-from front_end_tpu_torch.ops import brief, grid, match  # noqa: E402
+from front_end_tpu_torch.ops import (brief, brisk, freak, grid,  # noqa
+                                     match, orb, subpix, surf)
 from front_end_tpu_torch.pipeline import vo, window_vo  # noqa: E402
 from front_end_tpu_torch.sim.sequence import make_sequence  # noqa: E402
 from front_end_tpu_torch.window import tracker  # noqa: E402
 
-STAGES = [(grid, "detect_pair"), (brief, "smooth"), (brief, "describe_pair"),
-          (match, "stereo_match_live"), (match, "interframe_match"),
-          (ransac, "rigid_ransac"), (lm, "refine_motion")]
+DESCRIBE_STAGES = {
+    "brief": [(brief, "smooth"), (brief, "describe_pair")],
+    "orb": [(brief, "smooth"), (orb, "intensity_centroid_angle"),
+            (orb, "describe")],
+    "brisk": [(brisk, "orientations"), (brisk, "describe")],
+    "freak": [(freak, "orientations"), (freak, "describe")],
+    "surf": [(surf, "describe")],
+    "surf_ext": [(surf, "describe")],
+}
+MATCH_STAGES = [(match, "stereo_match_live"), (match, "interframe_match")]
+MOTION_STAGES = [(ransac, "rigid_ransac"), (lm, "refine_motion")]
 WINDOW_STAGES = [(tracker, "update"), (tracker, "run_window_ba")]
 
 
-def bench_cfg():
+def bench_cfg(descriptor: str = "brief", use_subpix: bool = False):
     return vo.VOConfig(
         grid=grid.GridConfig(grid_rows=2, grid_cols=3, cell_capacity=384,
                              set_point=2000, init_threshold=15.0),
-        desc_bytes=32, ransac_hyps=256, ransac_threshold=0.5,
-        max_disparity=192.0, min_track_inliers=12)
+        descriptor=descriptor, desc_bytes=32, subpix=use_subpix,
+        ransac_hyps=256, ransac_threshold=0.5, max_disparity=192.0,
+        min_track_inliers=12)
+
+
+def stage_list(cfg):
+    """(module, function) pairs of the frame step with this descriptor."""
+    out = [(grid, "detect_pair")]
+    if cfg.subpix:
+        out.append((subpix, "corner_subpix"))
+    return (out + DESCRIBE_STAGES[cfg.descriptor] + MATCH_STAGES
+            + MOTION_STAGES)
+
+
+def stage_label(smod, name, cfg):
+    label = f"{smod.__name__.rsplit('.', 1)[-1]}.{name}"
+    if (smod, name) in MATCH_STAGES and cfg.desc_norm == "l2":
+        label += " [l2]"
+    return label
 
 
 def path_module(cfg):
@@ -76,20 +108,27 @@ def run(L, R, rig, cfg):
 def sweep(rig) -> None:
     lefts, rights = make_sequence(1, rig.height, rig.width)
     table = features.detector_table()
-    ids = sum((features.ids_for(f, table) for f in ("FAST", "ORB", "BRISK")),
-              [])
+    fams = ("FAST", "ORB", "BRISK", "SURF")
+    ids = sum((features.ids_for(f, table) for f in fams), [])
     services.single_image_detection(ids[::40], lefts[0], rights[0],
                                     device="cuda")
     torch.cuda.synchronize()
-    times = []
+    times, recs = [], None
     for _ in range(3):
         t0 = time.perf_counter()
-        services.single_image_detection(ids, lefts[0], rights[0],
-                                        device="cuda")
+        recs = services.single_image_detection(ids, lefts[0], rights[0],
+                                               device="cuda")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     print(f"sweep: {len(ids)} IDs, {min(times):.3f} s (runs "
           f"{[round(t, 3) for t in times]})")
+    per = defaultdict(list)
+    for r in recs:
+        per[table[r["detID"]]["Name"]].append(
+            r["processingTime"][0]["seconds"])
+    print("sweep, last run: ms per swept ID "
+          + ", ".join(f"{f} {1e3 * sum(per[f]) / len(per[f]):.3f}"
+                      for f in fams))
 
 
 def main() -> int:
@@ -97,6 +136,9 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--path", choices=("vo", "window", "sweep"),
                     default="vo")
+    ap.add_argument("--descriptor", choices=tuple(DESCRIBE_STAGES),
+                    default="brief")
+    ap.add_argument("--subpix", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_vo: needs a CUDA card", file=sys.stderr)
@@ -105,16 +147,20 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}")
-    rig, cfg = kitti_rig(), bench_cfg()
+    rig, cfg = kitti_rig(), bench_cfg(args.descriptor, args.subpix)
     if args.path == "sweep":
         sweep(rig)
         return 0
-    stages = list(STAGES)
+    stages = stage_list(cfg)
+    labels = [stage_label(m, f, cfg) for m, f in stages]
+    vo_cfg = cfg
     if args.path == "window":
         cfg = window_vo.WindowVOConfig.create(cfg)
         stages += WINDOW_STAGES
+        labels += [stage_label(m, f, vo_cfg) for m, f in WINDOW_STAGES]
     mod = path_module(cfg)
-    print(f"path: {args.path} ({mod.__name__}.run_sequence)")
+    print(f"path: {args.path} ({mod.__name__}.run_sequence), descriptor "
+          f"{vo_cfg.descriptor}, subpix {vo_cfg.subpix}")
     lefts, rights = make_sequence(args.frames, rig.height, rig.width)
     L = torch.as_tensor(lefts).cuda()
     R = torch.as_tensor(rights).cuda()
@@ -128,11 +174,11 @@ def main() -> int:
     spent = defaultdict(float)
     saved = []
     depth = [0]
-    for smod, name in stages:
+    for (smod, name), label in zip(stages, labels):
         fn = getattr(smod, name)
         saved.append((smod, name, fn))
 
-        def timed(*a, _fn=fn, _name=name, **k):
+        def timed(*a, _fn=fn, _name=label, **k):
             if depth[0]:                 # inside another stage: its time
                 return _fn(*a, **k)
             depth[0] += 1
@@ -156,11 +202,11 @@ def main() -> int:
     n = len(L)
     staged = 0.0
     print(f"serialized frame: {total:.3f} ms/frame")
-    for _, name in stages:
-        ms = spent[name] * 1e3 / n
+    for label in dict.fromkeys(labels):
+        ms = spent[label] * 1e3 / n
         staged += ms
-        print(f"  {name:<20s} {ms:8.3f} ms/frame")
-    print(f"  {'(rest)':<20s} {total - staged:8.3f} ms/frame")
+        print(f"  {label:<34s} {ms:8.3f} ms/frame")
+    print(f"  {'(rest)':<34s} {total - staged:8.3f} ms/frame")
 
     # ---- profiler window ----------------------------------------------
     acts = [torch.profiler.ProfilerActivity.CPU,

@@ -527,3 +527,85 @@ def test_vo_step_on_the_card_equals_the_cpu(dev):
                            getattr(outs["cpu"], f)), f
     np.testing.assert_allclose(outs["cuda"].pose.cpu().numpy(),
                                outs["cpu"].pose.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,p,nq,nt", [
+    ("stereo", dict(p1=0.7, p2=0.0, p3=192.0), 2304, 2304),
+    ("roi", dict(p1=100.0), 2304, 2304), ("roi", dict(p1=100.0), 2304, 4608)])
+def test_match_reduce_at_16_words_at_the_swap_set_shapes(dev, mode, p, nq,
+                                                         nt):
+    """512-bit (FREAK / BRISK) descriptors at the stereo, inter-frame and
+    tracker shapes of the swap set's paths."""
+    rs = np.random.RandomState(nt + len(mode))
+    bq = (rs.uniform(size=(nq, 512)) > 0.5).astype(np.float32)
+    perm = rs.randint(0, nq, nt)
+    bt = np.abs(bq[perm] - (rs.uniform(size=(nt, 512)) < 0.05))
+    xyq = np.stack([rs.uniform(0, 1241, nq), rs.uniform(0, 376, nq)], -1)
+    xyt = xyq[perm] + np.stack([rs.normal(8, 3, nt), rs.normal(0, 0.4, nt)],
+                               -1)
+    args = [pack_bits(torch.as_tensor(bq)),
+            pack_bits(torch.as_tensor(bt.astype(np.float32))),
+            torch.as_tensor(xyq, dtype=torch.float32),
+            torch.as_tensor(xyt, dtype=torch.float32),
+            torch.as_tensor(rs.uniform(size=nq) > 0.1),
+            torch.as_tensor(rs.uniform(size=nt) > 0.1)]
+    assert args[0].shape == (nq, 16)
+    before = match_reduce.launches
+    got = match_reduce.match_reduce(*[a.to(dev) for a in args], mode=mode,
+                                    **p)
+    torch.cuda.synchronize()
+    assert match_reduce.launches == before + 1
+    ref = match_reduce.plain(*args, mode, **p)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert int((ref[0] < 1e8).sum()) > 100
+
+
+@pytest.mark.parametrize("descriptor,subpix", [
+    ("orb", False), ("brisk", False), ("freak", False), ("surf", False),
+    ("surf_ext", False), ("brief", True)])
+def test_swap_set_vo_step_on_the_card_against_the_cpu(dev, descriptor,
+                                                      subpix):
+    """Detections equal; keypoints equal (within 1e-3 px refined);
+    binary descriptors with at most 0.1 % of bits differing (CUDA's
+    sin/cos/atan2 and reductions), SURF's within 1e-5; stereo and track
+    counts within 1 %, poses within 1e-3; the launch counts of the path."""
+    from front_end_tpu_torch.geometry.camera import StereoRig
+    from front_end_tpu_torch.ops.grid import GridConfig
+    from front_end_tpu_torch.ops.kernels import brief_keypoints
+    from front_end_tpu_torch.pipeline import vo
+    from front_end_tpu_torch.sim.sequence import make_sequence
+    rig = StereoRig.create(fx=300.0, baseline=0.3, width=256, height=192)
+    cfg = vo.VOConfig(grid=GridConfig(cell_capacity=64, set_point=300,
+                                      init_threshold=12.0),
+                      descriptor=descriptor, subpix=subpix, ransac_hyps=128,
+                      ransac_threshold=0.5, max_disparity=64.0)
+    lefts, rights = make_sequence(4, 192, 256)
+    res = {}
+    for d in ("cpu", "cuda"):
+        before = (fast_grid.launches, match_reduce.launches,
+                  brief_keypoints.launches)
+        res[d] = vo.run_sequence(vo.init_state(rig, cfg, seed=1, device=d),
+                                 lefts, rights, rig, cfg)
+        torch.cuda.synchronize()
+        after = (fast_grid.launches, match_reduce.launches,
+                 brief_keypoints.launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+    binary = cfg.desc_norm == "hamming"
+    assert launched == (4, 8 if binary else 0,
+                        4 if descriptor == "brief" else 0)
+    (sg, og), (sc, oc) = res["cuda"], res["cpu"]
+    for f in ("n_detect_l", "n_detect_r"):
+        assert torch.equal(getattr(og, f).cpu(), getattr(oc, f)), f
+    xy_diff = float((sg.prev.kps.xy.cpu() - sc.prev.kps.xy).abs().max())
+    assert xy_diff <= (1e-3 if subpix else 0.0)
+    if binary:
+        assert (sg.prev.bits.cpu() != sc.prev.bits).float().mean() <= 1e-3
+    else:
+        assert sg.prev.packed is None
+        assert float((sg.prev.bits.cpu() - sc.prev.bits).abs().max()) <= 1e-5
+    for f in ("n_stereo", "n_tracks"):
+        a, b = getattr(og, f).cpu(), getattr(oc, f)
+        assert bool(((a - b).abs() <= 0.01 * b + 1).all()), f
+    np.testing.assert_allclose(og.pose.cpu().numpy(), oc.pose.numpy(),
+                               atol=1e-3)

@@ -56,13 +56,14 @@ def test_port_scripts_import_no_jax(script):
 
 def test_every_module_of_the_port_is_walked():
     """The probe above imports what `pkgutil` finds; hold that it finds
-    the service and windowed modules and both new kernel wrappers."""
+    the service, windowed and descriptor modules and the kernel wrappers."""
     import pkgutil
 
     import front_end_tpu_torch as pkg
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")}
-    for mod in ("features", "services", "ops.orb", "ops.brisk",
+    for mod in ("features", "services", "ops.orb", "ops.brisk", "ops.freak",
+                "ops.surf", "ops.subpix",
                 "ops.kernels.fast_detect", "ops.kernels.fast_margins",
                 "pipeline.control", "pipeline.window_vo", "window.tracker",
                 "ba.factors", "ba.schur"):

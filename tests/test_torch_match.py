@@ -133,9 +133,33 @@ def test_unique_per_train_matches_jax():
 
 
 def test_float_norm_is_a_later_item():
-    (_, _), (_, _), (tkq, tdq), (tkt, tdt) = _both(seed=7)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tmatch.stereo_match_live(tkq, tdq, tkt, tdt, norm="l2")
+    """Once a later item, float (L2) matching is now ported: the live
+    recipe on unit-normalised float descriptors equals the JAX matrix path
+    (`tests/test_torch_match_l2.py` holds all three recipes), and an
+    unknown norm raises."""
+    (jkq, _), (jkt, _), (tkq, _), (tkt, _) = _both(seed=7)
+    rs = np.random.RandomState(7)
+    fq = rs.normal(size=(192, 64)).astype(np.float32)
+    ft = fq[rs.permutation(256) % 192] + rs.normal(
+        0, 0.05, (256, 64)).astype(np.float32)
+    fq, ft = (f / np.linalg.norm(f, axis=1, keepdims=True) for f in (fq, ft))
+    got = tmatch.stereo_match_live(
+        tkq, ttypes.Descriptors(t(fq), norm="l2"), tkt,
+        ttypes.Descriptors(t(ft), norm="l2"), epi_threshold=15.0,
+        norm="l2")
+    ref = jmatch.stereo_match_live(
+        jkq, jtypes.Descriptors(bits=jnp.asarray(fq)), jkt,
+        jtypes.Descriptors(bits=jnp.asarray(ft)), epi_threshold=15.0,
+        backend="xla", norm="l2")
+    np.testing.assert_array_equal(n(got.valid), n(ref.valid))
+    v = n(ref.valid)
+    assert v.sum() > 30
+    np.testing.assert_array_equal(n(got.train_idx)[v], n(ref.train_idx)[v])
+    np.testing.assert_allclose(n(got.distance)[v], n(ref.distance)[v],
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="unknown norm"):
+        tmatch.stereo_match_live(tkq, ttypes.Descriptors(t(fq)), tkt,
+                                 ttypes.Descriptors(t(ft)), norm="l1")
 
 
 def _split_starts(total, parts):
