@@ -56,15 +56,35 @@ Phases, each of which exits non-zero on failure:
      `SUBPIX_TOL` px with sub-pixel refinement), binary descriptors with
      at most `BIT_SHARE` of their bits differing, SURF's within
      `SURF_TOL`, counts and poses as stated beside each;
-  5. the service path: `services.single_image_detection` over every FAST
-     (354), ORB (270), BRISK (88) and SURF (432) ID of the detector table
-     on frame 0's
+  4c. the essential-matrix egomotion (`motion="essential"`): (a) the
+     synthetic pan over `SWAP_FRAMES` frames, launch counters as in phase
+     3 (1 grid, 1 keypoint BRIEF, 2 match launches a frame), trajectory
+     checked as there, ms/frame (best of 3); (b) the rendered corridor
+     (`render.corridor_scene` + `corridor_trajectory_reversal`, rendered
+     with the KITTI rig) through the start of its 180° turn, ATE against
+     the rendered truth beside the rigid path's on the same frames; (c)
+     `CPU_FRAMES` frames of the pan on the CPU with the same draws:
+     detections, keypoints, stereo, track and inlier counts equal, poses
+     within `ESS_POSE_TOL`; (d) the
+     5-point solver (`essential_scaled_motion(solver="five_point")`) on
+     2304 correspondences with 30 % outliers and 64 minimal sets, card
+     then CPU with the same draws: R within `FIVE_POINT_ANGLE`, inlier
+     sets within `FIVE_POINT_SHARE`, ms per call;
+  5. the service path: `services.single_image_detection` over all 1208
+     IDs of the detector table (FAST 354, ORB 270, BRISK 88, SURF 432,
+     AKAZE 64) on frame 0's
      pair, then `get_stereo_features` + `stereo_matching` for a (FAST,
      BRIEF-32) and a (FAST, ORB) ID pair; counters reset before and read
      after (6 margin launches, one detect launch per pyramid level, octave
-     and image); every record supported, counts monotone in the threshold
-     where that is a theorem, everything held against the same calls on
-     the CPU; ms per swept ID per family;
+     and image; SURF and AKAZE none); every record supported, counts
+     monotone in the threshold where that is a theorem, everything held
+     against the same calls on the CPU (AKAZE exact); ms per swept ID per
+     family;
+  5b. AKAZE (MLDB and M-SURF) and SIFT `detect_and_describe` on frame 0's
+     left image: the card twice identical; card against CPU keypoints
+     equal, orientations equal on all but `ANGLE_SHARE`, MLDB bits within
+     `BIT_SHARE`, M-SURF and SIFT values within `SURF_TOL` where the
+     orientations agree; ms per image;
   6. the windowed path: `window_vo.run_sequence` over 40 frames with
      `WindowVOConfig.create` defaults (1 grid, 1 keypoint BRIEF, 3 match
      launches per frame), BA on every frame once the window is full,
@@ -106,6 +126,20 @@ COUNT_SHARE = 0.01   # stereo / track counts where descriptors differ
 SWAP_POSE_TOL = 1e-3  # poses where the match sets differ
 SWAP = (("orb", False), ("brisk", False), ("freak", False), ("surf", False),
         ("surf_ext", False), ("brief", True))
+# the essential path card vs CPU: on the pan's single plane the 8-point E
+# is not determined, so the card's SVDs, which round otherwise than
+# LAPACK's, give another E of the same consensus; the LM polish brings the
+# poses together
+ESS_POSE_TOL = 2e-2
+# frames of the rendered corridor's out-and-back walk (120 frames, a
+# 48-frame turn from frame 36): the last of the forward leg and the turn
+CORRIDOR_FRAMES = slice(30, 50)
+# the 5-point solver card vs CPU: each finds its own null-space basis
+FIVE_POINT_ANGLE = 2e-3     # rad
+FIVE_POINT_SHARE = 0.02
+# orientations card vs CPU (AKAZE's window sums, SIFT's atan2 at a bin
+# edge): the share of keypoints whose angle may differ
+ANGLE_SHARE = 0.005
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor
 # float32 ops/s.
@@ -283,6 +317,19 @@ def match_work(nq: int, nt: int, nw: int):
         pairs * MATCH_CORE_OPS / CORE_OPS_S))
 
 
+def ate_rmse(poses, gt) -> float:
+    """Absolute trajectory error (m) of (T, 4, 4) world_T_camera poses
+    that start at the identity against the truth `gt`, taken relative to
+    its first pose, after the rigid alignment that minimises it."""
+    g = (np.linalg.inv(gt[0]) @ gt)[:, :3, 3]
+    e = np.asarray(poses, np.float64)[:, :3, 3]
+    me, mg = e.mean(0), g.mean(0)
+    U, _, Vt = np.linalg.svd((g - mg).T @ (e - me))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    aligned = (e - me) @ (U @ D @ Vt).T + mg
+    return float(np.sqrt((np.linalg.norm(aligned - g, axis=1) ** 2).mean()))
+
+
 def features_close(a, b, tol):
     return (abs(a["X"][0] - b["X"][0]) <= tol
             and abs(a["X"][1] - b["X"][1]) <= tol
@@ -305,13 +352,16 @@ def main() -> int:
     from front_end_tpu_torch import features, services
     from front_end_tpu_torch.geometry import se3
     from front_end_tpu_torch.geometry.camera import kitti_rig
-    from front_end_tpu_torch.ops import brief, brisk, grid, image, match, orb
+    from front_end_tpu_torch.ops import (akaze, brief, brisk, grid, image,
+                                         match, orb, sift)
     from front_end_tpu_torch.ops import fast as fast_ops
     from front_end_tpu_torch.ops.kernels import (_build, brief_keypoints,
                                                  brief_planes, fast_detect,
                                                  fast_grid, fast_margins,
                                                  match_reduce)
+    from front_end_tpu_torch.motion import essential, ransac
     from front_end_tpu_torch.pipeline import vo, window_vo
+    from front_end_tpu_torch.sim import render
     from front_end_tpu_torch.sim.sequence import make_sequence
     from front_end_tpu_torch.utils.precision import pinned_f32
 
@@ -911,21 +961,180 @@ def main() -> int:
                   f"pose max diff {dpose:.2e} (tolerance {pose_tol})",
                   flush=True)
 
+        # ---- phase 4c: the essential-matrix egomotion ---------------
+        # (a) the synthetic pan: a single fronto-parallel plane, on which
+        # the 8-point E is not determined; the LM polish fixes the pose
+        ecfg = cfg.replace(motion="essential")
+        n = SWAP_FRAMES
+        torch.cuda.synchronize()
+        reset_counts()
+        s, o = vo.run_sequence(vo.init_state(rig, ecfg, seed=0, device=dev),
+                               Ls, Rs, rig, ecfg)
+        torch.cuda.synchronize()
+        launches = by_path["vo essential"] = read_counts()
+        expect = {"fast_grid": n, "brief_planes": 0, "brief_keypoints": n,
+                  "match_reduce": 2 * n, "fast_detect": 0, "fast_margins": 0}
+        check(launches == expect,
+              f"essential: launches {launches}, want {expect}")
+        poses = o.pose.cpu()
+        check(bool(torch.isfinite(poses).all()), "essential: non-finite pose")
+        ok_frac = float(o.motion_ok.float().mean())
+        check(ok_frac >= 0.9, f"essential: motion_ok on {ok_frac:.0%}")
+        t_final = poses[-1, :3, 3].double()
+        t_true = torch.tensor([(n - 1) * step_m, 0.0, 0.0],
+                              dtype=torch.float64)
+        drift = float((t_final - t_true).norm())
+        rot = float(se3.rotation_geodesic_error(poses[-1, :3, :3],
+                                                torch.eye(3)))
+        check(drift < 0.05 * float(t_true.norm()) and rot < 0.01,
+              f"essential: final position {t_final.tolist()} vs "
+              f"{t_true.tolist()}, rotation error {rot}")
+        timed = []
+        for _ in range(3):
+            st = vo.init_state(rig, ecfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vo.run_sequence(st, Ls, Rs, rig, ecfg)
+            torch.cuda.synchronize()
+            timed.append((time.perf_counter() - t0) / n * 1e3)
+        ess_ms = min(timed)
+        print(f"VO essential: {n} frames, launches {launches}, motion_ok "
+              f"{ok_frac:.0%}, drift {drift:.4f} m, rot {rot:.2e} rad, mean "
+              f"inliers {float(o.n_inliers.float().mean()):.0f}; "
+              f"{ess_ms:.3f} ms/frame (runs {[round(x, 3) for x in timed]}; "
+              f"rigid brief {ms_frame:.3f} in phase 3) [{card}]", flush=True)
+
+        # (b) the rendered corridor, through the start of its 180° turn:
+        # the rotation-rich world the essential path is meant for; ATE
+        # after a rigid alignment, beside the rigid path's on the frames
+        scene = render.corridor_scene(np.random.RandomState(11),
+                                      tex_size=1024, capped=True,
+                                      uniform_texel_scale=True)
+        gt = render.corridor_trajectory_reversal(120, turn_frames=48)[
+            CORRIDOR_FRAMES]
+        t0 = time.perf_counter()
+        cl, cr = render.render_stereo_sequence(scene, rig, gt)
+        render_s = time.perf_counter() - t0
+        CL, CR = torch.as_tensor(cl).to(dev), torch.as_tensor(cr).to(dev)
+        ates = {}
+        for label, c in (("essential", ecfg), ("rigid", cfg)):
+            st = vo.init_state(rig, c, seed=0, device=dev)
+            _, oc_ = vo.run_sequence(st, CL, CR, rig, c)
+            cp = oc_.pose.cpu().numpy()
+            check(np.isfinite(cp).all(), f"corridor {label}: non-finite pose")
+            ates[label] = (ate_rmse(cp, gt),
+                           float(oc_.motion_ok.float().mean()),
+                           float(oc_.n_inliers.float().mean()))
+        g_rel = np.linalg.inv(gt[0]) @ gt
+        path = float(np.linalg.norm(np.diff(g_rel[:, :3, 3], axis=0),
+                                    axis=1).sum())
+        yaw = float(np.degrees(np.arccos(np.clip(
+            (np.trace(g_rel[-1, :3, :3]) - 1) / 2, -1, 1))))
+        ate_e = ates["essential"][0]
+        check(ate_e < 0.1 * path and ates["essential"][1] >= 0.9,
+              f"corridor essential: ATE {ate_e:.4f} m over a {path:.3f} m "
+              f"path, motion_ok {ates['essential'][1]:.0%}")
+        print(f"VO essential, rendered corridor: {len(gt)} frames "
+              f"({path:.3f} m, {yaw:.1f} deg of yaw; rendered in "
+              f"{render_s:.1f} s), ATE essential {ate_e:.4f} m (motion_ok "
+              f"{ates['essential'][1]:.0%}, mean inliers "
+              f"{ates['essential'][2]:.0f}), rigid {ates['rigid'][0]:.4f} m "
+              f"(motion_ok {ates['rigid'][1]:.0%}, mean inliers "
+              f"{ates['rigid'][2]:.0f})", flush=True)
+
+        # (c) the first frames of the pan on the CPU, the same draws
+        res = {}
+        for d in ("cuda", "cpu"):
+            st = vo.init_state(rig, ecfg, seed=0, device=d)
+            res[d] = vo.run_sequence(st, lefts[:CPU_FRAMES],
+                                     rights[:CPU_FRAMES], rig, ecfg)
+        (sg, og), (sc, oc) = res["cuda"], res["cpu"]
+        for f in ("n_detect_l", "n_detect_r", "n_stereo", "n_tracks"):
+            check(torch.equal(getattr(og, f).cpu(), getattr(oc, f)),
+                  f"essential: card vs CPU {f}")
+        for f in ("xy", "score", "valid"):
+            check(torch.equal(getattr(sg.prev.kps, f).cpu(),
+                              getattr(sc.prev.kps, f)),
+                  f"essential: card vs CPU keypoints.{f}")
+        dpose = float((og.pose.cpu() - oc.pose).abs().max())
+        check(torch.equal(og.n_inliers.cpu(), oc.n_inliers)
+              and dpose <= ESS_POSE_TOL,
+              f"essential: card vs CPU inlier counts {og.n_inliers.tolist()} "
+              f"vs {oc.n_inliers.tolist()}, poses {dpose} apart (tolerance "
+              f"{ESS_POSE_TOL})")
+        print(f"VO essential cpu vs card: {CPU_FRAMES} frames, detections, "
+              f"keypoints, stereo, track and inlier counts equal, pose max "
+              f"diff {dpose:.2e} (tolerance {ESS_POSE_TOL})", flush=True)
+
+        # (d) the 5-point solver on one KITTI-sized correspondence set
+        rs5 = np.random.RandomState(21)
+        n5 = 2304
+        X5 = np.stack([rs5.uniform(-8, 8, n5), rs5.uniform(-2, 2, n5),
+                       rs5.uniform(4, 40, n5)], -1)
+        R5 = se3.so3_exp(torch.tensor([0.01, 0.04, -0.005],
+                                      dtype=torch.float64)).numpy()
+        T5 = np.array([0.05, -0.01, 0.9])
+        Xb5 = X5 @ R5.T + T5
+        pp = np.array([rig.cx, rig.cy])
+        uva5 = X5[:, :2] / X5[:, 2:] * rig.fx + pp
+        uvb5 = Xb5[:, :2] / Xb5[:, 2:] * rig.fx + pp
+        bad5 = rs5.uniform(size=n5) < 0.3
+        uvb5[bad5] += rs5.uniform(-40, 40, (bad5.sum(), 2))
+        args5 = [torch.as_tensor(a, dtype=torch.float32)
+                 for a in (uva5, uvb5, X5, Xb5)]
+        valid5 = torch.ones(n5, dtype=torch.bool)
+
+        def five(d):
+            sampler = ransac.InverseCdfSampler(
+                torch.Generator().manual_seed(5))
+            return essential.essential_scaled_motion(
+                sampler, *[a.to(d) for a in args5], valid5.to(d), rig,
+                n_hyps=64, solver="five_point")
+
+        five_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r5 = five(dev)
+            torch.cuda.synchronize()
+            five_ms.append((time.perf_counter() - t0) * 1e3)
+        r5c = five("cpu")
+        ang5 = float(se3.rotation_geodesic_error(r5.R.cpu(), r5c.R))
+        apart5 = float((r5.inliers.cpu() != r5c.inliers).float().mean())
+        err5 = float(se3.rotation_geodesic_error(
+            r5.R.cpu().double(), torch.as_tensor(R5)))
+        check(ang5 <= FIVE_POINT_ANGLE and apart5 <= FIVE_POINT_SHARE
+              and err5 < 5e-3 and int(r5.n_inliers) > 0.9 * (~bad5).sum(),
+              f"5-point: card vs CPU R {ang5:.2e} rad (tolerance "
+              f"{FIVE_POINT_ANGLE}), inlier sets {apart5:.2%} apart "
+              f"(tolerance {FIVE_POINT_SHARE:.0%}), R {err5:.2e} rad from "
+              f"the truth, {int(r5.n_inliers)} inliers")
+        print(f"5-point: {n5} correspondences, 30 % outliers, 64 minimal "
+              f"sets: {int(r5.n_inliers)} inliers ({int((~bad5).sum())} "
+              f"true), R {err5:.2e} rad from the truth; card vs CPU R "
+              f"{ang5:.2e} rad, inlier sets {apart5:.2%} apart; "
+              f"{min(five_ms):.3f} ms per call (runs "
+              f"{[round(x, 3) for x in five_ms]}) [{card}]", flush=True)
+
         # ---- phase 5: the service path ------------------------------
         dtab = features.detector_table()
         fam_ids = {f: features.ids_for(f, dtab)
-                   for f in ("FAST", "ORB", "BRISK", "SURF")}
+                   for f in ("FAST", "ORB", "BRISK", "SURF", "AKAZE")}
         check({f: len(v) for f, v in fam_ids.items()}
-              == {"FAST": 354, "ORB": 270, "BRISK": 88, "SURF": 432},
-              "detector table")
+              == {"FAST": 354, "ORB": 270, "BRISK": 88, "SURF": 432,
+                  "AKAZE": 64}, "detector table")
         sweep = sum(fam_ids.values(), [])
-        check(len(sweep) == 1144, f"{len(sweep)} swept IDs")
+        check(len(sweep) == len(dtab) == 1208, f"{len(sweep)} swept IDs")
+        akaze_groups = {(dtab[i]["Param"]["n_octaves"],
+                         dtab[i]["Param"]["n_octave_layers"],
+                         dtab[i]["Param"]["diffusivity"])
+                        for i in fam_ids["AKAZE"]}
         surf_groups = {(dtab[i]["Param"]["n_octaves"],
                         dtab[i]["Param"]["n_octave_layers"])
                        for i in fam_ids["SURF"]}
         # one margin launch per circle type and image; one detect launch
         # per pyramid level (ORB layout) or octave (BRISK) and image; SURF's
-        # Hessian maps launch none of the kernels
+        # Hessian maps and AKAZE's scale spaces launch none of the kernels
         orb_groups = {(dtab[i]["Param"]["n_levels"],
                        dtab[i]["Param"]["scale_factor"],
                        dtab[i]["Param"]["edge_threshold"])
@@ -952,15 +1161,16 @@ def main() -> int:
               f"fast_detect {got_counts['fast_detect']} (derived "
               f"{want_detect} = 2 images x levels of {len(orb_groups)} ORB "
               f"layouts + octaves of {len(brisk_groups)} BRISK layouts); "
-              f"{len(surf_groups)} SURF layouts", flush=True)
+              f"{len(surf_groups)} SURF layouts, {len(akaze_groups)} AKAZE "
+              f"groups", flush=True)
         check(got_counts["fast_margins"] == want_margins
               and got_counts["fast_detect"] == want_detect,
               f"service launches {got_counts}")
         check(all(r["supported"] for r in recs), "an ID came back unsupported")
         check([r["detID"] for r in recs] == sweep, "record order")
         check(not any(r["approximate"] for r in recs if
-                      dtab[r["detID"]]["Name"] in ("FAST", "BRISK")),
-              "a FAST/BRISK record flagged approximate")
+                      dtab[r["detID"]]["Name"] in ("FAST", "BRISK", "AKAZE")),
+              "a FAST/BRISK/AKAZE record flagged approximate")
         n_approx = {f: sum(r["approximate"] for r in recs
                            if dtab[r["detID"]]["Name"] == f)
                     for f in ("ORB", "SURF")}
@@ -994,6 +1204,17 @@ def main() -> int:
                 check(c[0] > 1000 or ft == "5_8", f"FAST {ft}: counts {c[:3]}")
         print(f"service: FAST count rises along the threshold {rises}",
               flush=True)
+        # an AKAZE group thresholds one map: counts never rise
+        for g in sorted(akaze_groups):
+            ids = sorted((i for i in fam_ids["AKAZE"]
+                          if (dtab[i]["Param"]["n_octaves"],
+                              dtab[i]["Param"]["n_octave_layers"],
+                              dtab[i]["Param"]["diffusivity"]) == g),
+                         key=lambda i: dtab[i]["Param"]["threshold"])
+            for side in ("leftFeatures", "rightFeatures"):
+                c = [rec_of[i][side]["nPoints"] for i in ids]
+                check(c == sorted(c, reverse=True) and c[-1] > 0,
+                      f"AKAZE {g} {side}: counts {c}")
 
         t0 = time.perf_counter()
         recs_cpu = services.single_image_detection(sweep, left0, right0,
@@ -1018,12 +1239,16 @@ def main() -> int:
               f"{oct_diff:.3e}", flush=True)
         # SURF's integral image is exact on both (float64 scans of an
         # integer image), its Hessian maps elementwise: exact
-        worst = {"FAST": 0.0, "ORB": 0.0, "BRISK": 0.0, "SURF": 0.0}
+        # AKAZE: its divisions stay true divisions on the card
+        # (`utils.precision.true_div`), so its maps are the CPU's
+        worst = {"FAST": 0.0, "ORB": 0.0, "BRISK": 0.0, "SURF": 0.0,
+                 "AKAZE": 0.0}
         for g, c in zip(recs, recs_cpu):
             fam = dtab[g["detID"]]["Name"]
             exact = (fam in ("FAST", "SURF")
                      or (fam == "ORB" and level_diff == 0.0)
-                     or (fam == "BRISK" and oct_diff == 0.0))
+                     or (fam == "BRISK" and oct_diff == 0.0)
+                     or fam == "AKAZE")
             check(g["approximate"] == c["approximate"] or not exact,
                   f"{g['detID']}: approximate flag differs")
             for side in ("leftFeatures", "rightFeatures"):
@@ -1038,8 +1263,9 @@ def main() -> int:
                     check(rel <= 0.005 or abs(a["nPoints"] - b["nPoints"])
                           <= 2, f"{g['detID']} {side}: card {a} vs CPU {b}")
         print(f"service: card vs CPU, largest relative count difference "
-              f"{worst} (FAST and SURF exact; ORB and BRISK exact when their "
-              f"level images are equal, else within 0.5 %)", flush=True)
+              f"{worst} (FAST, SURF and AKAZE exact; ORB and BRISK exact "
+              f"when their level images are equal, else within 0.5 %)",
+              flush=True)
 
         ds = features.descriptor_table()
         det_id = [i for i in fam_ids["FAST"] if dtab[i]["Param"] == dict(
@@ -1083,6 +1309,55 @@ def main() -> int:
                   "match_reduce": 2}
         check(by_path["service"] == expect,
               f"service launches {by_path['service']}, want {expect}")
+
+        # ---- phase 5b: AKAZE and SIFT, detection and description ----
+        img_c = torch.as_tensor(left0)
+        for label, run_dd in (
+                ("AKAZE mldb", lambda im: akaze.detect_and_describe(im)),
+                ("AKAZE msurf", lambda im: akaze.detect_and_describe(
+                    im, descriptor="msurf")),
+                ("SIFT", lambda im: sift.detect_and_describe(im))):
+            (dg, Dg), (dg2, Dg2) = run_dd(img0), run_dd(img0)
+            torch.cuda.synchronize()
+            check(torch.equal(dg.keypoints.xy, dg2.keypoints.xy)
+                  and torch.equal(dg.keypoints.angle, dg2.keypoints.angle)
+                  and torch.equal(Dg.bits, Dg2.bits),
+                  f"{label}: two card runs differ")
+            dd_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_dd(img0)
+                torch.cuda.synchronize()
+                dd_ms.append((time.perf_counter() - t0) * 1e3)
+            dc, Dc = run_dd(img_c)
+            kg, kc = dg.keypoints, dc.keypoints
+            n_kp = int(kc.valid.sum())
+            check(n_kp > 100, f"{label}: {n_kp} keypoints")
+            for f in ("xy", "score", "valid"):
+                check(torch.equal(getattr(kg, f).cpu(), getattr(kc, f)),
+                      f"{label}: card vs CPU keypoints.{f}")
+            dang = (kg.angle.cpu() - kc.angle).abs()
+            same_ang = dang <= 1e-5
+            ang_share = float((~same_ang).float().mean())
+            check(ang_share <= ANGLE_SHARE, f"{label}: {ang_share:.2%} of "
+                  f"orientations differ (tolerance {ANGLE_SHARE:.1%})")
+            if Dc.norm == "hamming":
+                d_err = float((Dg.bits.cpu() != Dc.bits).float().mean())
+                d_tol, what = BIT_SHARE, "share of bits differing"
+            else:
+                d_err = float((Dg.bits.cpu() - Dc.bits)[same_ang].abs().max())
+                d_tol, what = SURF_TOL, ("largest value difference where "
+                                         "the orientations agree")
+            check(d_err <= d_tol, f"{label}: card vs CPU descriptors, {what} "
+                  f"{d_err} (tolerance {d_tol})")
+            print(f"{label} detect_and_describe on frame 0's left image: "
+                  f"{n_kp} keypoints, card twice identical; card vs CPU "
+                  f"keypoints equal, orientations differing on "
+                  f"{ang_share:.2%} (largest {float(dang.max()):.2e} rad), "
+                  f"{what} {d_err:.2e} (tolerance {d_tol}); "
+                  f"{min(dd_ms):.3f} ms per image (runs "
+                  f"{[round(x, 3) for x in dd_ms]}) [{card}]", flush=True)
 
         # ---- phase 6: the windowed path ----------------------------
         wcfg = window_vo.WindowVOConfig.create(cfg)

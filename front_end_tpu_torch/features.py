@@ -9,10 +9,10 @@ and benchmark reports.  The grids mirror the reference system's value
 ranges exactly, so ID sets have the same cardinality per family and the
 same order as the JAX package's.
 
-`make_detector` / `make_descriptor` return callables for the families the
-port implements — detectors FAST, ORB, BRISK, SURF; every descriptor
-family (BRIEF, SURF, FREAK, ORB) — and `(None, False)` for the rest (the
-AKAZE detectors), the factory's own miss contract.
+`make_detector` / `make_descriptor` return callables for every family of
+the tables — detectors FAST, ORB, BRISK, SURF, AKAZE; descriptors BRIEF,
+SURF, FREAK, ORB — and `(None, False)` for settings of any other family,
+the factory's own miss contract.
 """
 from __future__ import annotations
 
@@ -151,7 +151,7 @@ def make_detector(settings) -> tuple[Callable | None, bool]:
     """Settings (or Det-ID) -> (detect_fn, supported).
 
     detect_fn(img) -> score map (H, W) on the image's device; corners are
-    `map > 0`.  Families not ported yet return (None, False)."""
+    `map > 0`.  Families outside the table return (None, False)."""
     if isinstance(settings, str):
         settings = detector_table()[settings]
     name, p = settings["Name"], settings["Param"]
@@ -189,6 +189,16 @@ def make_detector(settings) -> tuple[Callable | None, bool]:
             return brisk_mod.detect_dense(
                 img, threshold=float(p["threshold"]),
                 n_octaves=max(1, int(p["n_octaves"])))
+        return detect, True
+    if name == "AKAZE":
+        from front_end_tpu_torch.ops import akaze as akaze_mod
+
+        def detect(img):
+            return akaze_mod.detect_dense(
+                img, threshold=float(p["threshold"]),
+                n_octaves=int(p["n_octaves"]),
+                n_sublevels=int(p["n_octave_layers"]),
+                diffusivity=str(p["diffusivity"]))
         return detect, True
     return None, False
 

@@ -148,6 +148,41 @@ def shift2d(img, dy: int, dx: int):
     return shift_views(img, abs(dy), abs(dx))(dy, dx)
 
 
+def central_gradient(img):
+    """(gx, gy): central differences with edge padding."""
+    v = shift_views(img, 1, 1)
+    return 0.5 * (v(0, 1) - v(0, -1)), 0.5 * (v(1, 0) - v(-1, 0))
+
+
+def quadratic_fit(img, det_floor: float):
+    """The in-plane quadratic fit at every pixel, from central differences
+    with edge padding: the offsets −H⁻¹g, each clipped to [−0.5, 0.5] (a
+    determinant at most `det_floor` in size divides by 1), and H's trace
+    and determinant -> (offx, offy, trace, det)."""
+    v = shift_views(img, 1, 1)
+    dxx = v(0, 1) + v(0, -1) - 2 * img
+    dyy = v(1, 0) + v(-1, 0) - 2 * img
+    dxy = 0.25 * (v(1, 1) + v(-1, -1) - v(1, -1) - v(-1, 1))
+    gx = 0.5 * (v(0, 1) - v(0, -1))
+    gy = 0.5 * (v(1, 0) - v(-1, 0))
+    det = dxx * dyy - dxy * dxy
+    den = torch.where(det.abs() > det_floor, det, torch.ones_like(det))
+    offx = torch.clamp(-(dyy * gx - dxy * gy) / den, -0.5, 0.5)
+    offy = torch.clamp(-(dxx * gy - dxy * gx) / den, -0.5, 0.5)
+    return offx, offy, dxx + dyy, det
+
+
+def rotated_samples(xy, offs, ca, sa, step):
+    """(N, P, 2) sample points: (P, 2) [dy, dx] offsets rotated by each
+    keypoint's angle (cos ca, sin sa, (N,)) and scaled by `step` (N, 1),
+    around the (N, 2) keypoints."""
+    rx = (offs[None, :, 1] * ca[:, None] - offs[None, :, 0] * sa[:, None]) \
+        * step
+    ry = (offs[None, :, 1] * sa[:, None] + offs[None, :, 0] * ca[:, None]) \
+        * step
+    return torch.stack([xy[:, 0:1] + rx, xy[:, 1:2] + ry], -1)
+
+
 def bilinear_sample(img, xy):
     """Bilinear interpolation of an (H, W) image at (N, 2) float (x, y),
     clamped to [0, W − 1.001] × [0, H − 1.001] (the JAX package's form)."""

@@ -14,7 +14,9 @@ Stages (the JAX package's stage map):
   5. Q triangulation of the matched pairs
   6. inter-frame match vs the previous left features: ROI + kNN + Lowe +
      uniqueness (Hamming: one match-kernel launch; SURF: L2 matrix)
-  7. 3-point rigid RANSAC + LM polish
+  7. egomotion: 3-point rigid RANSAC, or (`motion="essential"`) 8-point
+     essential RANSAC, the cheirality vote and the stereo scale; then the
+     LM polish
   8. pose integration
 
 Every stage keeps static shapes; thresholds, the previous frame's
@@ -30,6 +32,7 @@ import torch
 
 from front_end_tpu_torch.geometry import se3
 from front_end_tpu_torch.geometry.camera import StereoRig
+from front_end_tpu_torch.motion import essential as essential_mod
 from front_end_tpu_torch.motion import lm as lm_mod
 from front_end_tpu_torch.motion import ransac as ransac_mod
 from front_end_tpu_torch.ops import brief as brief_mod
@@ -82,11 +85,7 @@ class VOConfig:
     def __post_init__(self):
         if self.descriptor not in DESCRIPTORS:
             raise ValueError(f"unknown descriptor {self.descriptor!r}")
-        if self.motion == "essential":
-            raise NotImplementedError(
-                "motion='essential' is ported with the essential-matrix "
-                "egomotion (ROADMAP Queue 1 item 10)")
-        if self.motion != "rigid":
+        if self.motion not in ("rigid", "essential"):
             raise ValueError(f"unknown motion {self.motion!r}")
 
     @property
@@ -247,9 +246,14 @@ def _estimate_motion(sampler, cur: FrameFeatures, prev: FrameFeatures,
     pair_valid = (tm.valid & cur.stereo_valid
                   & take_rows(prev.stereo_valid, tm.train_idx))
 
-    res = ransac_mod.rigid_ransac(sampler, Xp, cur.X, pair_valid,
-                                  n_hyps=cfg.ransac_hyps,
-                                  threshold=cfg.ransac_threshold)
+    if cfg.motion == "essential":
+        res = essential_mod.essential_scaled_motion(
+            sampler, uvp, cur.uv4, Xp, cur.X, pair_valid, rig,
+            n_hyps=cfg.ransac_hyps, threshold_px=1.0)
+    else:
+        res = ransac_mod.rigid_ransac(sampler, Xp, cur.X, pair_valid,
+                                      n_hyps=cfg.ransac_hyps,
+                                      threshold=cfg.ransac_threshold)
     H, inliers, n_inl = res.H, res.inliers, res.n_inliers
     if cfg.lm_refine:
         H = lm_mod.refine_motion(H, Xp, cur.uv4, inliers, rig,

@@ -112,7 +112,8 @@ def _structural_response_fn(settings):
     threshold.  Families whose threshold only gates a margin-score
     response share one map per structural configuration (circle type;
     pyramid layout; octave count); `member` is what distinguishes an ID
-    inside its group.  Families not ported yet give (None, None, None)."""
+    inside its group.  Families outside the table give (None, None,
+    None)."""
     name, p = settings["Name"], settings["Param"]
     if name == "FAST":
         # ONE (detect, score) margin-map pair serves every (threshold,
@@ -156,6 +157,19 @@ def _structural_response_fn(settings):
             return surf_mod.dense_map(img, hessian_threshold=1e-6,
                                       n_octaves=no, n_octave_layers=nl)
         return ("SURF", no, nl), fn, float(p.get("hessian_threshold", 100))
+    if name == "AKAZE":
+        # the det-Hessian maxima; the threshold only gates them and no
+        # keypoint capacity stands behind the map, so one map per layout
+        # and diffusivity, built at a tiny threshold, is exact at any t
+        from front_end_tpu_torch.ops import akaze as akaze_mod
+        no = int(p.get("n_octaves", 4))
+        ns = int(p.get("n_octave_layers", p.get("n_sublevels", 4)))
+        diff = str(p.get("diffusivity", "pm_g2"))
+
+        def fn(img):
+            return akaze_mod.detect_dense(img, threshold=1e-8, n_octaves=no,
+                                          n_sublevels=ns, diffusivity=diff)
+        return ("AKAZE", no, ns, diff), fn, float(p.get("threshold", 1e-3))
     return None, None, None
 
 
@@ -192,11 +206,12 @@ def single_image_detection(det_ids, left, right, return_kp: bool = False,
     (one margin-kernel launch) and evaluates every (threshold, nms) member
     against it, so the full FAST sweep costs six kernel launches; ORB,
     BRISK and SURF build one response map per pyramid or octave layout.
-    A group's time is
+    AKAZE builds one per octave layout and diffusivity.  A group's time is
     spread evenly over its members.  `approximate` flags records whose
     count may be cut by the static keypoint capacity behind an ORB map, or
     is cut by the per-layer capacity behind a SURF map (JAX's pixel-count
-    probe misses the SURF case: see `surf.detect`'s `cut`).  Families that are not ported yet (AKAZE) come back
+    probe misses the SURF case: see `surf.detect`'s `cut`); an AKAZE map
+    has no capacity.  Settings of a family outside the table come back
     `supported: False`."""
     dev = resolve_device(device)
     left = torch.as_tensor(left).to(device=dev, dtype=torch.float32)

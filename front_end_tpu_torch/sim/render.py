@@ -190,3 +190,39 @@ def corridor_trajectory(n_frames: int, *, step: float = 0.12,
                     step * t]
         poses.append(T)
     return np.stack(poses)
+
+
+def corridor_trajectory_reversal(n_frames: int = 100, *,
+                                 step: float = 0.12,
+                                 turn_frames: int = 24,
+                                 sway: float = 0.08,
+                                 period: float = 18.0) -> np.ndarray:
+    """Out-and-back walk: a forward leg with gentle sway, a smooth in-place
+    180° yaw turn over `turn_frames`, then the way back facing −z.  Drift
+    cannot cancel: the camera ends near its start, so every metre of error
+    shows.  Use with `corridor_scene(capped=True)` so the turned camera
+    faces texture.  Returns (T, 4, 4) world_T_camera."""
+    fwd = (n_frames - turn_frames) // 2
+    z_turn = step * fwd
+    poses = []
+    for t in range(n_frames):
+        ph = 2 * np.pi * t / period
+        if t < fwd:                       # forward leg
+            yaw = 0.0
+            z = step * t
+        elif t < fwd + turn_frames:       # smooth 180° turn (smoothstep)
+            k = (t - fwd + 1) / turn_frames
+            s = k * k * (3 - 2 * k)
+            yaw = np.pi * s
+            z = z_turn
+        else:                             # return leg, facing −z
+            yaw = np.pi
+            z = z_turn - step * (t - fwd - turn_frames + 1)
+        cy_, sy = np.cos(yaw), np.sin(yaw)
+        Ry = np.array([[cy_, 0, sy], [0, 1, 0], [-sy, 0, cy_]])
+        T = np.eye(4)
+        T[:3, :3] = Ry
+        T[:3, 3] = [sway * np.sin(ph + 1.0),
+                    0.4 * sway * np.sin(2.3 * ph), z]
+        poses.append(T)
+    return np.stack(poses)

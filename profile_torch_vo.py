@@ -4,12 +4,17 @@
 
     python3 profile_torch_vo.py [--frames 20] [--path vo|window|sweep]
                                 [--descriptor NAME] [--subpix]
+                                [--motion rigid|essential]
 
 `--descriptor` picks the VO descriptor (brief, orb, brisk, freak, surf,
 surf_ext; default brief) and `--subpix` turns on the sub-pixel refinement;
 the stages follow: `subpix.corner_subpix`, each descriptor's orientation
 and description functions, and the two matches, which run on the L2
 distance matrix for SURF (marked [l2]) and on the match kernel otherwise.
+`--motion essential` drives the essential-matrix egomotion: its stages
+are the 8-point RANSAC (`ransac.ransac`), the cheirality vote with its
+SVDs (`essential.select_cheirality`) and the stereo scale
+(`essential.estimate_scale`) beside the LM polish.
 `--path window` drives `window_vo.run_sequence` with
 `WindowVOConfig.create` defaults and adds `tracker.update` and
 `tracker.run_window_ba` to the stages (a stage called inside another
@@ -24,9 +29,10 @@ drives) it prints:
   4. a `torch.profiler` window over 5 frames: kernel launches per frame,
      summed device kernel time per frame, the device's busy share of the
      wall time, and the top operators by host and by device time.
-`--path sweep` prints only the seconds of the 1144-ID FAST/ORB/BRISK/SURF
-`services.single_image_detection` sweep on frame 0's pair, three runs
-after a warm-up on every 40th ID, and ms per swept ID per family.
+`--path sweep` prints only the seconds of the 1208-ID FAST/ORB/BRISK/
+SURF/AKAZE `services.single_image_detection` sweep on frame 0's pair,
+three runs after a warm-up on every 40th ID, and ms per swept ID per
+family.
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -45,7 +51,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from front_end_tpu_torch import features, services  # noqa: E402
 from front_end_tpu_torch.geometry.camera import kitti_rig  # noqa: E402
-from front_end_tpu_torch.motion import lm, ransac  # noqa: E402
+from front_end_tpu_torch.motion import essential, lm, ransac  # noqa: E402
 from front_end_tpu_torch.ops import (brief, brisk, freak, grid,  # noqa
                                      match, orb, subpix, surf)
 from front_end_tpu_torch.pipeline import vo, window_vo  # noqa: E402
@@ -62,17 +68,22 @@ DESCRIBE_STAGES = {
     "surf_ext": [(surf, "describe")],
 }
 MATCH_STAGES = [(match, "stereo_match_live"), (match, "interframe_match")]
-MOTION_STAGES = [(ransac, "rigid_ransac"), (lm, "refine_motion")]
+MOTION_STAGES = {
+    "rigid": [(ransac, "rigid_ransac"), (lm, "refine_motion")],
+    "essential": [(ransac, "ransac"), (essential, "select_cheirality"),
+                  (essential, "estimate_scale"), (lm, "refine_motion")],
+}
 WINDOW_STAGES = [(tracker, "update"), (tracker, "run_window_ba")]
 
 
-def bench_cfg(descriptor: str = "brief", use_subpix: bool = False):
+def bench_cfg(descriptor: str = "brief", use_subpix: bool = False,
+              motion: str = "rigid"):
     return vo.VOConfig(
         grid=grid.GridConfig(grid_rows=2, grid_cols=3, cell_capacity=384,
                              set_point=2000, init_threshold=15.0),
         descriptor=descriptor, desc_bytes=32, subpix=use_subpix,
         ransac_hyps=256, ransac_threshold=0.5, max_disparity=192.0,
-        min_track_inliers=12)
+        min_track_inliers=12, motion=motion)
 
 
 def stage_list(cfg):
@@ -81,7 +92,7 @@ def stage_list(cfg):
     if cfg.subpix:
         out.append((subpix, "corner_subpix"))
     return (out + DESCRIBE_STAGES[cfg.descriptor] + MATCH_STAGES
-            + MOTION_STAGES)
+            + MOTION_STAGES[cfg.motion])
 
 
 def stage_label(smod, name, cfg):
@@ -108,7 +119,7 @@ def run(L, R, rig, cfg):
 def sweep(rig) -> None:
     lefts, rights = make_sequence(1, rig.height, rig.width)
     table = features.detector_table()
-    fams = ("FAST", "ORB", "BRISK", "SURF")
+    fams = ("FAST", "ORB", "BRISK", "SURF", "AKAZE")
     ids = sum((features.ids_for(f, table) for f in fams), [])
     services.single_image_detection(ids[::40], lefts[0], rights[0],
                                     device="cuda")
@@ -139,6 +150,8 @@ def main() -> int:
     ap.add_argument("--descriptor", choices=tuple(DESCRIBE_STAGES),
                     default="brief")
     ap.add_argument("--subpix", action="store_true")
+    ap.add_argument("--motion", choices=tuple(MOTION_STAGES),
+                    default="rigid")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_vo: needs a CUDA card", file=sys.stderr)
@@ -147,7 +160,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(f"card: {card}")
-    rig, cfg = kitti_rig(), bench_cfg(args.descriptor, args.subpix)
+    rig, cfg = kitti_rig(), bench_cfg(args.descriptor, args.subpix,
+                                      args.motion)
     if args.path == "sweep":
         sweep(rig)
         return 0
@@ -160,7 +174,8 @@ def main() -> int:
         labels += [stage_label(m, f, vo_cfg) for m, f in WINDOW_STAGES]
     mod = path_module(cfg)
     print(f"path: {args.path} ({mod.__name__}.run_sequence), descriptor "
-          f"{vo_cfg.descriptor}, subpix {vo_cfg.subpix}")
+          f"{vo_cfg.descriptor}, subpix {vo_cfg.subpix}, motion "
+          f"{vo_cfg.motion}")
     lefts, rights = make_sequence(args.frames, rig.height, rig.width)
     L = torch.as_tensor(lefts).cuda()
     R = torch.as_tensor(rights).cuda()

@@ -609,3 +609,159 @@ def test_swap_set_vo_step_on_the_card_against_the_cpu(dev, descriptor,
         assert bool(((a - b).abs() <= 0.01 * b + 1).all()), f
     np.testing.assert_allclose(og.pose.cpu().numpy(), oc.pose.numpy(),
                                atol=1e-3)
+
+
+def _corridor(n_frames=6, start=10):
+    """Frames of the rendered corridor's 180° turn at 256×192, the rig."""
+    from front_end_tpu_torch.geometry.camera import StereoRig
+    from front_end_tpu_torch.sim import render
+    rig = StereoRig.create(fx=200.0, cx=127.5, cy=95.5, baseline=0.3,
+                           width=256, height=192)
+    scene = render.corridor_scene(np.random.RandomState(11), tex_size=384,
+                                  capped=True, uniform_texel_scale=True)
+    gt = render.corridor_trajectory_reversal(40, turn_frames=16)[
+        start:start + n_frames]
+    return rig, render.render_stereo_sequence(scene, rig, gt), gt
+
+
+def test_essential_vo_step_on_the_card_against_the_cpu(dev):
+    """`motion="essential"` on the rendered corridor: 1 grid, 1 keypoint
+    BRIEF and 2 match launches a frame; detections, stereo and track
+    counts equal; consensus sizes within 2 rows a frame and poses within
+    2e-2 (the refit's E is weakly determined at a few metres, and the
+    card's SVDs round otherwise than LAPACK's; `ROADMAP.md` Queue 3)."""
+    from front_end_tpu_torch.ops.grid import GridConfig
+    from front_end_tpu_torch.pipeline import vo
+    rig, (lefts, rights), _ = _corridor()
+    cfg = vo.VOConfig(grid=GridConfig(cell_capacity=128, set_point=700,
+                                      init_threshold=12.0),
+                      ransac_hyps=96, ransac_threshold=0.12,
+                      max_disparity=60.0, min_track_inliers=10,
+                      motion="essential")
+    res = {}
+    for d in ("cpu", "cuda"):
+        before = (fast_grid.launches, brief_keypoints.launches,
+                  match_reduce.launches)
+        res[d] = vo.run_sequence(vo.init_state(rig, cfg, seed=1, device=d),
+                                 lefts, rights, rig, cfg)[1]
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(
+            (fast_grid.launches, brief_keypoints.launches,
+             match_reduce.launches), before))
+    assert launched == (6, 6, 12)
+    og, oc = res["cuda"], res["cpu"]
+    for f in ("n_detect_l", "n_detect_r", "n_stereo", "n_tracks"):
+        assert torch.equal(getattr(og, f).cpu(), getattr(oc, f)), f
+    assert bool(((og.n_inliers.cpu() - oc.n_inliers).abs() <= 2).all())
+    assert bool(og.motion_ok.all())
+    np.testing.assert_allclose(og.pose.cpu().numpy(), oc.pose.numpy(),
+                               atol=2e-2)
+
+
+def test_five_point_on_the_card_against_the_cpu(dev):
+    """The 5-point solver with the same draws: the same basis is not
+    promised (cuSOLVER and LAPACK), so R within 2e-3 rad and consensus
+    sets at most 2 % apart; the card twice gives the same answer."""
+    from front_end_tpu_torch.geometry.camera import StereoRig
+    from front_end_tpu_torch.motion import essential, ransac
+    rs = np.random.RandomState(4)
+    n_pts = 600
+    X = np.stack([rs.uniform(-4, 4, n_pts), rs.uniform(-2, 2, n_pts),
+                  rs.uniform(4, 30, n_pts)], -1)
+    c, s = np.cos(0.03), np.sin(0.03)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    Xb = X @ R.T + np.array([0.1, 0.0, 0.8])
+    uva = X[:, :2] / X[:, 2:] * 700 + [620, 188]
+    uvb = Xb[:, :2] / Xb[:, 2:] * 700 + [620, 188]
+    bad = rs.uniform(size=n_pts) < 0.3
+    uvb[bad] += rs.uniform(-40, 40, (bad.sum(), 2))
+    rig = StereoRig.create(fx=700.0, cx=620.0, cy=188.0, baseline=0.54,
+                           width=1241, height=376)
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in (uva, uvb, X,
+                                                              Xb)]
+    valid = torch.ones(n_pts, dtype=torch.bool)
+    out = []
+    for d in ("cpu", "cuda", "cuda"):
+        sampler = ransac.InverseCdfSampler(torch.Generator().manual_seed(5))
+        out.append(essential.essential_scaled_motion(
+            sampler, *[a.to(d) for a in args], valid.to(d), rig, n_hyps=64,
+            solver="five_point"))
+    cpu, card, again = out
+    assert torch.equal(card.inliers, again.inliers)
+    assert torch.equal(card.R, again.R)
+    apart = int((card.inliers.cpu() != cpu.inliers).sum())
+    assert apart <= 0.02 * n_pts
+    ang = float(torch.arccos(((card.R.cpu().T @ cpu.R).trace() - 1)
+                             .clamp(-2, 2) / 2))
+    assert ang < 2e-3
+    np.testing.assert_allclose(card.R.cpu().numpy(), R, atol=5e-3)
+
+
+@pytest.mark.parametrize("descriptor", ["mldb", "msurf"])
+def test_akaze_on_the_card_against_the_cpu(dev, descriptor):
+    """CUDA's exp may round otherwise than the CPU's (the g1 and Weickert
+    conductivities; these use g2, elementwise and exact), and the
+    orientation windows and descriptor pools are matrix products summed in
+    another order, whose window argmax can flip on a near tie: keypoints
+    equal; orientations within 1e-5 rad on all but 0.5 % of keypoints;
+    MLDB bits at most 0.1 % differing, M-SURF values within 1e-5 where the
+    orientations agree; the card twice gives the same output."""
+    from front_end_tpu_torch.ops import akaze
+    img = torch.as_tensor(image(188, 620, seed=7))
+    runs = [akaze.detect_and_describe(img.to(d), n_octaves=2, n_sublevels=4,
+                                      descriptor=descriptor)
+            for d in ("cpu", "cuda", "cuda")]
+    (dc, Dc), (dg, Dg), (dg2, Dg2) = runs
+    assert torch.equal(dg.keypoints.xy, dg2.keypoints.xy)
+    assert torch.equal(Dg.bits, Dg2.bits)
+    for f in ("xy", "score", "valid"):
+        assert torch.equal(getattr(dg.keypoints, f).cpu(),
+                           getattr(dc.keypoints, f)), f
+    assert int(dc.keypoints.valid.sum()) > 200
+    same = (dg.keypoints.angle.cpu() - dc.keypoints.angle).abs() <= 1e-5
+    assert float((~same).float().mean()) <= 0.005
+    if descriptor == "mldb":
+        assert (Dg.bits.cpu() != Dc.bits).float().mean() <= 1e-3
+    else:
+        assert float((Dg.bits.cpu() - Dc.bits)[same].abs().max()) <= 1e-5
+
+
+def test_akaze_sweep_records_on_the_card_equal_the_cpu(dev):
+    """All 64 AKAZE IDs: every record supported; counts equal to the
+    CPU's for the g2 and Charbonnier groups (elementwise arithmetic only),
+    within 0.5 % for g1 and Weickert (CUDA's exp)."""
+    from front_end_tpu_torch import services
+    dt = features.detector_table()
+    ids = features.ids_for("AKAZE", dt)
+    L, R = image(188, 620, seed=8), image(188, 620, seed=9)
+    got = services.single_image_detection(ids, L, R, device="cuda")
+    ref = services.single_image_detection(ids, L, R, device="cpu")
+    for g, r in zip(got, ref):
+        assert g["supported"] and not g["approximate"]
+        exact = dt[g["detID"]]["Param"]["diffusivity"] in ("pm_g2",
+                                                           "charbonnier")
+        for side in ("leftFeatures", "rightFeatures"):
+            a, b = g[side]["nPoints"], r[side]["nPoints"]
+            assert a == b if exact else abs(a - b) <= 0.005 * b + 1, \
+                (g["detID"], a, b)
+
+
+def test_sift_on_the_card_against_the_cpu(dev):
+    """The orientation histogram adds its samples in one fixed order, so
+    the card gives the same angles twice; against the CPU's, all but 0.5 %
+    equal (CUDA's atan2 may put a sample on the other side of a bin edge);
+    detections equal; descriptors within 1e-5 where the angles agree (the
+    cell pooling is a matrix product)."""
+    from front_end_tpu_torch.ops import sift
+    img = torch.as_tensor(image(188, 620, seed=6))
+    runs = [sift.detect_and_describe(img.to(d)) for d in ("cpu", "cuda",
+                                                          "cuda")]
+    (dc, Dc), (dg, Dg), (dg2, _) = runs
+    assert torch.equal(dg.keypoints.angle, dg2.keypoints.angle)
+    for f in ("xy", "score", "valid"):
+        assert torch.equal(getattr(dg.keypoints, f).cpu(),
+                           getattr(dc.keypoints, f)), f
+    assert int(dc.keypoints.valid.sum()) > 100
+    same = dg.keypoints.angle.cpu() == dc.keypoints.angle
+    assert float((~same).float().mean()) <= 0.005
+    assert float((Dg.bits.cpu() - Dc.bits)[same].abs().max()) <= 1e-5

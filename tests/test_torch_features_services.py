@@ -68,18 +68,17 @@ def test_matcher_norm_and_yaml_export(tmp_path):
 
 
 def test_factories_supported_and_missing():
-    """Every detector family but AKAZE (not ported yet: the miss
-    contract), every one of the 17 descriptor IDs."""
+    """Every detector family of the table, AKAZE included, and every one
+    of the 17 descriptor IDs; a family outside the tables is the miss
+    contract's (None, False)."""
     dt, ds = tfeatures.detector_table(), tfeatures.descriptor_table()
-    for fam in ("FAST", "ORB", "BRISK", "SURF"):
+    for fam in ("FAST", "ORB", "BRISK", "SURF", "AKAZE"):
         fn, ok = tfeatures.make_detector(tfeatures.ids_for(fam, dt)[3])
         assert ok and callable(fn)
-    assert tfeatures.make_detector(
-        tfeatures.ids_for("AKAZE", dt)[0]) == (None, False)
     answered = [tfeatures.make_descriptor(i) for i in ds]
     assert len(answered) == 17 and all(ok and callable(fn)
                                        for fn, ok in answered)
-    assert sum(tfeatures.make_detector(i)[1] for i in dt) == 1144
+    assert sum(tfeatures.make_detector(i)[1] for i in dt) == 1208
     assert tfeatures.make_detector({"Name": "SIFT", "Param": {}}) == \
         (None, False)
     assert tfeatures.make_descriptor({"Name": "SIFT", "Param": {}}) == \

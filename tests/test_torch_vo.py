@@ -176,19 +176,18 @@ def test_swap_descriptor_resets_features_only():
     (dict(descriptor="orb"), "item 9"), (dict(descriptor="freak"), "item 9"),
     (dict(motion="essential"), "item 10"), (dict(subpix=True), "item 9")])
 def test_later_slices_raise_naming_their_roadmap_item(kw, item):
-    """What is still to port raises, citing its ROADMAP item (only the
-    essential-matrix egomotion, item 10, is left); what item 9 ported (the
-    descriptor swap set, sub-pixel refinement) is accepted and configured
-    like the JAX package's VOConfig."""
-    if item == "item 10":
-        with pytest.raises(NotImplementedError, match=item):
-            tvo.VOConfig(**kw)
-        return
+    """Nothing of `VOConfig` is left to port: what items 9 and 10 ported
+    (the descriptor swap set, sub-pixel refinement, the essential-matrix
+    egomotion) is accepted and configured like the JAX package's
+    VOConfig; an unknown descriptor or motion still raises."""
     cfg, ref = tvo.VOConfig(**kw), jvo.VOConfig(**kw)
-    assert (cfg.descriptor, cfg.subpix, cfg.desc_dim, cfg.desc_norm) == \
-        (ref.descriptor, ref.subpix, ref.desc_dim, ref.desc_norm)
+    assert (cfg.descriptor, cfg.subpix, cfg.motion, cfg.desc_dim,
+            cfg.desc_norm) == (ref.descriptor, ref.subpix, ref.motion,
+                               ref.desc_dim, ref.desc_norm)
     with pytest.raises(ValueError, match="unknown descriptor"):
         tvo.VOConfig(descriptor="sift")
+    with pytest.raises(ValueError, match="unknown motion"):
+        tvo.VOConfig(motion="homography")
 
 
 def test_brief_pallas_is_an_alias():
