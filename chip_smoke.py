@@ -93,8 +93,31 @@ Phases, each of which exits non-zero on failure:
      against its twin at the tracker's 2304 × 4608 association; first 3
      frames against the CPU; then `WINDOW_SURF_FRAMES` frames with SURF (a
      float landmark store, no match launch), checked the same way;
-  7. a JSON line describing every kernel, the card line, and as the last
-     line {"ok": true, "device": {...}}.
+  7. the command line on disk (`front_end_tpu_torch.cli`, in process),
+     on layouts written to a temporary directory: (a) `CLI_FRAMES` frames
+     of the VO path's sequence as 8-bit PNG in a KITTI layout (calib.txt
+     from the rig, poses/00.txt the pan's known motion), read back equal
+     through `KittiSequence` and, where libpng lets it build, the native
+     feed (alone and through a `DeviceFeed`), decode ms/image; (b) `vo
+     --kitti --record --out`, 1 / 1 / 2 launches a frame, the trajectory
+     equal to `vo.run_sequence`'s in memory within the card's run-to-run
+     spread (measured here: two in-memory runs), within 5 % of the known
+     motion, ATE / RPE, the recording read back, ms/frame; the step's
+     ms/frame over frames in memory, behind the feed (threaded, inline) and
+     behind the feed over decoded files, and the decode alone,
+     interleaved; (c) `--save-state` after half the frames, `--resume` for the
+     rest, equal to (b) within that spread, and a windowed checkpoint's
+     save and load ms; (d) `vo --window` over `CLI_WINDOW_FRAMES`, 1 / 1 / 3
+     a frame; (e) a depth-`FEED_DEPTH` `DeviceFeed` over the frames,
+     byte-equal, and the H2D copy of a pinned pair, uint8 against float32;
+     (f) a EuRoC layout of `EUROC_FRAMES` rendered frames at 752 × 480,
+     cam1 pitched 2°: the rectifier's remap card vs CPU within
+     `REMAP_CARD_TOL`, `vo --euroc` with stereo matches beside the raw
+     pair's; (g) `detect-sweep` for FAST and ORB, records equal to the
+     service's called directly;
+  8. a JSON line describing every kernel (`launches_by_path` with a `cli`
+     entry), the card line, and as the last line {"ok": true, "device":
+     {...}}.
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -161,6 +184,15 @@ TENSOR_INT_OPS_S = 1979e12
 # from the source)
 MATCH_CORE_OPS = 12
 OFF_PATH = {"brief_planes"}   # kept, checked and timed; launched by no path
+# phase 7, the command line on disk
+CLI_FRAMES = 20
+CLI_WINDOW_FRAMES = 8
+EUROC_FRAMES = 5
+EUROC_SIZE = (752, 480)        # EuRoC's cameras, (W, H)
+FEED_DEPTH = 2
+# the rectifier's remap card vs CPU, grey levels in [0, 255]: CUDA may
+# contract the bilinear weights into fused multiply-adds (a few ulp)
+REMAP_CARD_TOL = 1e-3
 SLEEP_CYCLES_S = 1.98e9   # `torch.cuda._sleep` spins this many clocks a second
 
 
@@ -335,6 +367,385 @@ def features_close(a, b, tol):
             and abs(a["X"][1] - b["X"][1]) <= tol
             and abs(a["Y"][0] - b["Y"][0]) <= tol
             and abs(a["Y"][1] - b["Y"][1]) <= tol)
+
+
+def write_kitti(root: Path, lefts, rights, rig, poses) -> None:
+    """A KITTI odometry layout: sequences/00/image_{0,1} as 8-bit PNG
+    (the port's encoder), calib.txt from `rig`, poses/00.txt."""
+    from front_end_tpu_torch.utils import png
+    sd = root / "sequences" / "00"
+    for cam, imgs in (("image_0", lefts), ("image_1", rights)):
+        (sd / cam).mkdir(parents=True)
+        for i, im in enumerate(imgs):
+            png.write(sd / cam / f"{i:06d}.png", im)
+    fx, cx, cy, b = rig.fx, rig.cx, rig.cy, rig.baseline
+    (sd / "calib.txt").write_text(
+        f"P0: {fx!r} 0 {cx!r} 0 0 {fx!r} {cy!r} 0 0 0 1 0\n"
+        f"P1: {fx!r} 0 {cx!r} {-fx * b!r} 0 {fx!r} {cy!r} 0 0 0 1 0\n")
+    (root / "poses").mkdir()
+    np.savetxt(root / "poses" / "00.txt",
+               poses[:, :3, :].reshape(len(poses), 12))
+
+
+def write_euroc(root: Path, n: int):
+    """An ASL layout at EuRoC's size whose cam1 is pitched 2° in its
+    sensor.yaml T_BS (and rendered so), so the pair is usable only once
+    rectified (`tests/test_euroc_format.py`'s fixture at full size).
+    Returns the rig the frames were rendered with."""
+    from front_end_tpu_torch.geometry.camera import StereoRig
+    from front_end_tpu_torch.sim import render
+    from front_end_tpu_torch.utils import png
+    W, H = EUROC_SIZE
+    rig = StereoRig.create(fx=458.654, cx=(W - 1) / 2, cy=(H - 1) / 2,
+                           baseline=0.11, width=W, height=H)
+    scene = render.corridor_scene(np.random.RandomState(13), tex_size=256)
+    gt = render.corridor_trajectory(n)
+    a = np.deg2rad(2.0)
+    T1 = np.eye(4)
+    T1[:3, :3] = [[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                  [0, np.sin(a), np.cos(a)]]
+    T1[0, 3] = rig.baseline
+    mav = root / "S" / "mav0"
+    for cam, T in (("cam0", np.eye(4)), ("cam1", T1)):
+        (mav / cam / "data").mkdir(parents=True)
+        rows = ", ".join(repr(float(x)) for x in T.ravel())
+        (mav / cam / "sensor.yaml").write_text(
+            f"sensor_type: camera\nT_BS:\n  cols: 4\n  rows: 4\n"
+            f"  data: [{rows}]\nresolution: [{W}, {H}]\n"
+            f"intrinsics: [{rig.fx!r}, {rig.fy!r}, {rig.cx!r}, {rig.cy!r}]\n"
+            "distortion_coefficients: [0.0, 0.0, 0.0, 0.0]\n")
+        for i in range(n):
+            img = render.render_view(scene, rig, gt[i] @ T)
+            png.write(mav / cam / "data" / f"{1403636579763555584 + i:d}.png",
+                      img.astype(np.uint8))
+    return rig
+
+
+def cli_phase(torch, dev, card, lefts, rights, rig, cfg, poses_mem,
+              ms_frame, reset_counts, read_counts) -> dict:
+    """Phase 7: the command line on a KITTI and a EuRoC layout written to
+    a temporary directory.  Returns the launches of all its CLI runs."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from front_end_tpu_torch import cli, native, services
+    from front_end_tpu_torch.eval import metrics
+    from front_end_tpu_torch.io import euroc, kitti, native_feed
+    from front_end_tpu_torch.io.feed import DeviceFeed
+    from front_end_tpu_torch.pipeline import telemetry, vo, window_vo
+    from front_end_tpu_torch.sim.sequence import make_sequence
+    from front_end_tpu_torch.utils import checkpoint, png
+
+    n = CLI_FRAMES
+    L8 = np.asarray(lefts[:n], np.uint8)
+    R8 = np.asarray(rights[:n], np.uint8)
+    check(np.array_equal(L8, lefts[:n]) and np.array_equal(R8, rights[:n]),
+          "the synthetic frames are not 8-bit integers")
+    step_m = 3 * rig.baseline / 12
+    gt = np.tile(np.eye(4), (n, 1, 1))
+    gt[:, 0, 3] = step_m * np.arange(n)
+    total = {}
+
+    def run_cli(argv, expect=None):
+        """`cli.main(argv)` on the card, launch counters reset just before
+        and read just after; -> (stdout, counts)."""
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(rc == 0, f"cli {argv[0]} returned {rc}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        if expect is not None:
+            check(counts == expect, f"cli {' '.join(argv[:2])}: launches "
+                  f"{counts}, want {expect}")
+        return out.getvalue(), counts
+
+    def launches(grid_, brief, match):
+        return {"fast_grid": grid_, "brief_planes": 0,
+                "brief_keypoints": brief, "match_reduce": match,
+                "fast_detect": 0, "fast_margins": 0}
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        # (a) the KITTI layout, read back
+        root = tmp / "kitti"
+        write_kitti(root, L8, R8, rig, gt)
+        seq = kitti.KittiSequence(str(root), "00")
+        check(seq.rig == rig, f"calib.txt read back as {seq.rig}")
+        for i in range(n):
+            a, b = seq[i]
+            check(np.array_equal(a, L8[i]) and np.array_equal(b, R8[i]),
+                  f"KITTI frame {i} read back differs")
+        lp, rp = seq.paths()
+        t0 = time.perf_counter()
+        for p in lp + rp:
+            kitti._read_image(p)
+        read_ms = (time.perf_counter() - t0) / (2 * n) * 1e3
+        t0 = time.perf_counter()
+        for p in lp + rp:
+            png.read(p)
+        zlib_ms = (time.perf_counter() - t0) / (2 * n) * 1e3
+        import importlib.util
+        reader = ("PIL" if importlib.util.find_spec("PIL") else
+                  "the port's zlib decoder")
+        print(f"CLI phase: KITTI layout of {n} frames read back equal; "
+              f"decode {read_ms:.3f} ms/image ({reader}), {zlib_ms:.3f} "
+              f"ms/image (the port's zlib decoder) [{card}]", flush=True)
+        try:        # builds and loads csrc/feed.cc, which needs libpng
+            native_feed.NativeStereoFeed(lp[:1], rp[:1], rig.height,
+                                         rig.width).close()
+            have_native = True
+        except (native.NativeBuildError, OSError) as e:
+            check("png" in str(e), f"native feed build or load failed: {e}")
+            have_native = False
+            first = next((ln for ln in str(e).splitlines() if "png" in ln),
+                         "")
+            print(f"native feed: left out, libpng is not on this machine "
+                  f"({first.strip()})", flush=True)
+        if have_native:
+            t0 = time.perf_counter()
+            with native_feed.NativeStereoFeed(lp, rp, rig.height, rig.width,
+                                              ring=4, threads=4) as feed:
+                got = list(feed)
+            native_ms = (time.perf_counter() - t0) / n * 1e3
+            check(len(got) == n and all(
+                np.array_equal(a, L8[i]) and np.array_equal(b, R8[i])
+                for i, (a, b) in enumerate(got)),
+                "NativeStereoFeed frames differ from the source")
+            with native_feed.NativeStereoFeed(lp, rp, rig.height, rig.width,
+                                              ring=2, threads=4) as feed:
+                got = list(DeviceFeed(feed.frames_zero_copy(),
+                                      depth=FEED_DEPTH, device=dev))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a.cpu(), torch.from_numpy(L8[i]))
+                      and torch.equal(b.cpu(), torch.from_numpy(R8[i]))
+                      for i, (a, b) in enumerate(got)),
+                  "NativeStereoFeed -> DeviceFeed frames differ")
+            print(f"native feed: {n} pairs equal, {native_ms:.3f} ms/pair "
+                  f"(4 decoder threads), and through a depth-"
+                  f"{FEED_DEPTH} DeviceFeed onto the card equal [{card}]",
+                  flush=True)
+
+        # the card's run-to-run spread on the in-memory path
+        s = vo.init_state(rig, cfg, seed=0, device=dev)
+        _, o = vo.run_sequence(s, torch.as_tensor(L8).to(dev),
+                               torch.as_tensor(R8).to(dev), rig, cfg)
+        mem = poses_mem.double().numpy()
+        spread = float(np.abs(o.pose.cpu().double().numpy() - mem).max())
+        print(f"card run to run: in-memory trajectories differ by at most "
+              f"{spread:.3e}", flush=True)
+
+        # (b) `cli vo --kitti` with a recording
+        rec, traj = str(tmp / "rec"), str(tmp / "traj.txt")
+        text, _ = run_cli(["vo", "--kitti", str(root), "--frames", str(n),
+                           "--record", rec, "--out", traj],
+                          launches(n, n, 2 * n))
+        est = np.loadtxt(traj)
+        check(est.shape == (n, 12), f"--out holds {est.shape}")
+        diff = float(np.abs(est - mem[:, :3, :].reshape(n, 12)).max())
+        check(diff <= spread, f"cli trajectory differs from run_sequence's "
+              f"by {diff} (run-to-run spread {spread})")
+        drift = float(np.linalg.norm(est[-1, [3, 7, 11]] - gt[-1, :3, 3]))
+        check(drift < 0.05 * gt[-1, 0, 3], f"cli final position "
+              f"{est[-1, [3, 7, 11]]} vs {gt[-1, :3, 3]}")
+        P = np.tile(np.eye(4), (n, 1, 1))
+        P[:, :3, :] = est.reshape(n, 3, 4)
+        ate = metrics.ate_rmse(P[:, :3, 3], gt[:, :3, 3])
+        rpe = metrics.rpe(P, gt)
+        check("ATE RMSE" in text, "cli vo printed no ATE")
+        stages, counters, meta = telemetry.load_log(rec)
+        check(stages["frame"].shape == (n,) and set(counters) == {
+            "n_detect_l", "n_stereo", "n_tracks", "n_inliers"},
+            f"recording {list(stages)} {list(counters)}")
+        check(meta["platform"] == torch.cuda.get_device_name(dev),
+              f"recorded platform {meta['platform']}")
+        rec_ms = float(np.median(stages["frame"])) * 1e3
+        t0 = time.perf_counter()
+        run_cli(["vo", "--kitti", str(root), "--frames", str(n)],
+                launches(n, n, 2 * n))
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        # where the command line's time goes: the step over frames in
+        # memory (float32, as phase 3), behind the feed (its thread, or
+        # inline), over frames decoded from the files behind the feed, and
+        # the decode alone; interleaved, median of 3 runs each
+        Lf = torch.as_tensor(lefts[:n]).to(dev)
+        Rf = torch.as_tensor(rights[:n]).to(dev)
+        sources = {
+            "in memory": lambda: zip(Lf, Rf),
+            "feed": lambda: DeviceFeed(zip(L8, R8), device=dev),
+            "feed inline": lambda: DeviceFeed(zip(L8, R8), device=dev,
+                                              threaded=False),
+            "decode + feed": lambda: DeviceFeed(seq.frames(), device=dev),
+            "decode + feed inline": lambda: DeviceFeed(
+                seq.frames(), device=dev, threaded=False),
+            "decode alone": None}
+        runs = {k: [] for k in sources}
+        for _ in range(3):
+            for k, frames in sources.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if frames is None:
+                    for _ in seq.frames():
+                        pass
+                else:
+                    s = vo.init_state(rig, cfg, seed=0, device=dev)
+                    for a, b in frames():
+                        s, _ = vo.vo_step(s, a, b, rig, cfg)
+                torch.cuda.synchronize()
+                runs[k].append((time.perf_counter() - t0) / n * 1e3)
+        print("ms/frame, interleaved, median of 3: " + ", ".join(
+            f"{k} {np.median(v):.3f} {[round(x, 3) for x in v]}"
+            for k, v in runs.items()) + f" [{card}]", flush=True)
+        print(f"cli vo --kitti: {n} frames, launches 1 / 1 / 2 a frame, "
+              f"trajectory equal to run_sequence's (max diff {diff:.3e}), "
+              f"drift {drift:.4f} m, ATE {ate:.6f} m, RPE "
+              f"{rpe['trans_rmse_m']:.6f} m / {rpe['rot_rmse_deg']:.6f} deg;"
+              f" recorded frame median {rec_ms:.3f} ms, cli wall "
+              f"{wall_ms:.3f} ms/frame (decode, feed and step), in-memory "
+              f"vo_step {ms_frame:.3f} (phase 3) [{card}]", flush=True)
+
+        # (c) --save-state after half, --resume for the rest
+        ck, traj_c = str(tmp / "ck"), str(tmp / "traj_c.txt")
+        half = n // 2
+        run_cli(["vo", "--kitti", str(root), "--frames", str(half),
+                 "--save-state", ck], launches(half, half, 2 * half))
+        run_cli(["vo", "--kitti", str(root), "--frames", str(n),
+                 "--resume", ck, "--out", traj_c],
+                launches(n - half, n - half, 2 * (n - half)))
+        rdiff = float(np.abs(np.loadtxt(traj_c) - est).max())
+        check(rdiff <= spread, f"resumed trajectory differs by {rdiff} "
+              f"(run-to-run spread {spread})")
+        wcfg = window_vo.WindowVOConfig.create(cfg)
+        ws, _ = window_vo.run_sequence(
+            window_vo.init_state(rig, wcfg, seed=0, device=dev),
+            torch.as_tensor(L8[:3]).to(dev), torch.as_tensor(R8[:3]).to(dev),
+            rig, wcfg)
+        wpath = str(tmp / "win.npz")
+        save_ms, load_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_state(wpath, ws)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            tmpl = window_vo.init_state(rig, wcfg, seed=9, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = checkpoint.load_state(wpath, tmpl)
+            torch.cuda.synchronize()
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+        check(same(torch, back.win.store.packed, ws.win.store.packed)
+              and torch.equal(back.win.store.bits, ws.win.store.bits)
+              and torch.equal(back.vo.generator.get_state(),
+                              ws.vo.generator.get_state()),
+              "windowed checkpoint round trip on the card")
+        mb = Path(wpath).stat().st_size / 1e6
+        print(f"cli resume: {half} + {n - half} frames, trajectory equal to "
+              f"the uninterrupted run's (max diff {rdiff:.3e}); windowed "
+              f"checkpoint ({mb:.1f} MB) save {min(save_ms):.3f} ms, load "
+              f"{min(load_ms):.3f} ms (best of 3) [{card}]", flush=True)
+
+        # (d) --window
+        nw = CLI_WINDOW_FRAMES
+        traj_w = str(tmp / "traj_w.txt")
+        run_cli(["vo", "--kitti", str(root), "--frames", str(nw),
+                 "--window", "--out", traj_w], launches(nw, nw, 3 * nw))
+        ew = np.loadtxt(traj_w)
+        wdrift = float(np.linalg.norm(ew[-1, [3, 7, 11]] - gt[nw - 1, :3, 3]))
+        check(np.isfinite(ew).all() and wdrift < 0.05 * gt[nw - 1, 0, 3],
+              f"cli --window final position {ew[-1, [3, 7, 11]]}")
+        print(f"cli vo --window: {nw} frames, launches 1 / 1 / 3 a frame, "
+              f"drift {wdrift:.4f} m", flush=True)
+
+        # (e) the pinned ring, smaller than the sequence
+        got = list(DeviceFeed(zip(L8, R8), depth=FEED_DEPTH, device=dev))
+        torch.cuda.synchronize()
+        check(len(got) == n and all(
+            l.dtype == torch.uint8 and torch.equal(l.cpu(),
+                                                   torch.from_numpy(L8[i]))
+            and torch.equal(r.cpu(), torch.from_numpy(R8[i]))
+            for i, (l, r) in enumerate(got)),
+            f"DeviceFeed (depth {FEED_DEPTH}) frames differ from the source")
+        h2d = {}
+        for dt in (np.uint8, np.float32):
+            pairs = [tuple(torch.from_numpy(a.astype(dt)).pin_memory()
+                           for a in (L8[i], R8[i])) for i in range(n)]
+            it = iter(range(10 ** 9))
+            h2d[dt.__name__] = cuda_ms(torch, lambda: [
+                t.to(dev, non_blocking=True)
+                for t in pairs[next(it) % n]], 40) * 1e3
+        mb8 = 2 * L8[0].nbytes / 1e6
+        print(f"DeviceFeed: {n} pairs through a depth-{FEED_DEPTH} pinned "
+              f"ring, byte-equal; H2D per pair {h2d['uint8']:.3f} us uint8 "
+              f"({mb8:.2f} MB, {mb8 / h2d['uint8'] * 1e3:.1f} GB/s), "
+              f"{h2d['float32']:.3f} us float32 ({4 * mb8:.2f} MB, "
+              f"{4 * mb8 / h2d['float32'] * 1e3:.1f} GB/s) [{card}]",
+              flush=True)
+
+        # (f) EuRoC: rectified on the card
+        t0 = time.perf_counter()
+        erig = write_euroc(tmp / "euroc", EUROC_FRAMES)
+        render_s = time.perf_counter() - t0
+        seq_dir = str(tmp / "euroc" / "S")
+        rc_card = euroc.build_rectifier(seq_dir, device=dev)
+        rc_cpu = euroc.build_rectifier(seq_dir, device="cpu")
+        check(rc_card.rig() == erig, f"rectified rig {rc_card.rig()}")
+        raw = euroc.EurocSequence(str(tmp / "euroc"), "S", rectify=False)
+        rerr = 0.0
+        for i in range(EUROC_FRAMES):
+            l, r = raw[i]
+            for g, c in zip(rc_card(l, r), rc_cpu(l, r)):
+                rerr = max(rerr, float((g.cpu() - c).abs().max()))
+        check(rerr <= REMAP_CARD_TOL, f"remap card vs CPU differs by {rerr}")
+        l, r = (torch.as_tensor(a).to(dev) for a in raw[0])
+        remap_ms = cuda_ms(torch, lambda: rc_card(l, r), 20)
+        erec = str(tmp / "erec")
+        run_cli(["vo", "--euroc", str(tmp / "euroc"), "--seq", "S",
+                 "--record", erec],
+                launches(EUROC_FRAMES, EUROC_FRAMES, 2 * EUROC_FRAMES))
+        ecount = telemetry.load_log(erec)[1]["n_stereo"]
+        rrig = euroc.load_rig(seq_dir)
+        st = vo.init_state(rrig, cfg, device=dev)
+        raw_count = []
+        for i in range(EUROC_FRAMES):
+            st, o = vo.vo_step(st, *raw[i], rrig, cfg)
+            raw_count.append(int(o.n_stereo))
+        check(ecount.min() > 50 and ecount.min() > 1.5 * max(raw_count),
+              f"EuRoC stereo matches rectified {ecount.tolist()}, raw "
+              f"{raw_count}")
+        print(f"cli vo --euroc: {EUROC_FRAMES} frames at {EUROC_SIZE[1]}x"
+              f"{EUROC_SIZE[0]} (rendered in {render_s:.1f} s), remap card "
+              f"vs CPU max diff {rerr:.3e} (tolerance {REMAP_CARD_TOL}), "
+              f"{remap_ms * 1e3:.3f} us a pair on the card (both maps, "
+              f"uint8 frames already there); stereo "
+              f"matches rectified {ecount.astype(int).tolist()} against "
+              f"{raw_count} on the raw pair [{card}]", flush=True)
+
+        # (g) detect-sweep against the service called directly
+        L1, R1 = make_sequence(1)
+        for family, k, kernel in (("FAST", 10, "fast_margins"),
+                                  ("ORB", 4, "fast_detect")):
+            text, counts = run_cli(["detect-sweep", "--family", family,
+                                    "--n", str(k)])
+            check(counts[kernel] > 0, f"detect-sweep {family}: {counts}")
+            from front_end_tpu_torch import features
+            ids = [i for i, v in features.detector_table().items()
+                   if v["Name"] == family][:k]
+            want = [f"{r['detID']}: L={r['leftFeatures']['nPoints']} "
+                    f"R={r['rightFeatures']['nPoints']}" for r in
+                    services.single_image_detection(ids, L1[0], R1[0])]
+            got = [ln.rsplit(" t=", 1)[0] for ln in text.splitlines()]
+            check(got == want, f"detect-sweep {family}: {got} vs {want}")
+            print(f"cli detect-sweep --family {family} --n {k}: records "
+                  f"equal to the service's, launches {counts}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
 
 
 def main() -> int:
@@ -801,7 +1212,7 @@ def main() -> int:
                   "brief_keypoints": FRAMES, "match_reduce": 2 * FRAMES,
                   "fast_detect": 0, "fast_margins": 0}
         check(launches == expect, f"launches {launches}, want {expect}")
-        poses = outs.pose.cpu()
+        poses = vo_poses = outs.pose.cpu()
         check(bool(torch.isfinite(poses).all()), "non-finite pose")
         ok_frac = float(outs.motion_ok.float().mean())
         check(ok_frac >= 0.9, f"motion_ok on {ok_frac:.0%} of frames")
@@ -1537,6 +1948,11 @@ def main() -> int:
         mk["ms_tracker_16w"] = tr16["ms"]
         mk["plain_ms_tracker_16w"] = tr16["plain"]
 
+        # ---- phase 7: the command line on disk ----------------------
+        by_path["cli"] = cli_phase(torch, dev, card, lefts, rights, rig, cfg,
+                                   vo_poses, ms_frame, reset_counts,
+                                   read_counts)
+
     line = []
     for k in kernels:
         by_s, ops_s = k.pop("bound_s")
@@ -1550,6 +1966,8 @@ def main() -> int:
             check(line[-1]["launches"] == 0, f"{name} is launched by a path")
         else:
             check(line[-1]["launches"] > 0, f"{name} was never launched")
+            check(line[-1]["launches_by_path"]["cli"] > 0,
+                  f"{name} was never launched by the command line")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -74,8 +74,27 @@ class StereoRig:
         left, right = self.project(X)
         return torch.cat([left, right], -1)
 
+    def in_view(self, X, margin: float = 0.0, min_z: float = 0.1):
+        """Visibility mask of left-frame points in both cameras."""
+        left, right = self.project(X)
+
+        def inside(p):
+            return ((p[..., 0] >= margin)
+                    & (p[..., 0] <= self.width - 1 - margin)
+                    & (p[..., 1] >= margin)
+                    & (p[..., 1] <= self.height - 1 - margin))
+        return inside(left) & inside(right) & (X[..., 2] > min_z)
+
 
 def kitti_rig() -> StereoRig:
     """KITTI odometry sequence 00-02 rectified geometry (P0 grayscale)."""
     return StereoRig.create(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157,
                             baseline=0.5371657, width=1241, height=376)
+
+
+def bumblebee_rig() -> StereoRig:
+    """A Bumblebee-like 1024×768 rig (the reference's camera; its
+    calibration lived on the ROS parameter server, these are
+    representative)."""
+    return StereoRig.create(fx=900.0, fy=900.0, cx=511.5, cy=383.5,
+                            baseline=0.12, width=1024, height=768)

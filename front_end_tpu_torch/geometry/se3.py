@@ -24,6 +24,58 @@ def create_homog(R=None, T=None):
     return torch.cat([top, bottom], -2)
 
 
+def euler_matrix(ai, aj, ak):
+    """Rotation (..., 3, 3) from static-frame 'szxy' Euler angles (radians),
+    tf's `euler_matrix` for that axis sequence (the reference composes
+    every motion with it)."""
+    si, sj, sk = torch.sin(ai), torch.sin(aj), torch.sin(ak)
+    ci, cj, ck = torch.cos(ai), torch.cos(aj), torch.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    # szxy: i = z (2), j = x (0), k = y (1)
+    rows = {2: (cj * ck, sj * sc - cs, sj * cc + ss),
+            0: (cj * sk, sj * ss + cc, sj * cs - sc),
+            1: (-sj, cj * si, cj * ci)}
+    order = (2, 0, 1)            # column of each (i, j, k) slot
+    M = [[None] * 3 for _ in range(3)]
+    for r, vals in rows.items():
+        for c, v in zip(order, vals):
+            M[r][c] = v
+    return torch.stack([torch.stack(row, -1) for row in M], -2)
+
+
+def euler_from_matrix(R):
+    """Inverse of `euler_matrix`: (ai, aj, ak) radians; the gimbal-lock
+    branch where |cos(aj)| < 1e-8."""
+    sy = torch.sqrt(R[..., 2, 2] ** 2 + R[..., 0, 2] ** 2)
+    singular = sy < 1e-8
+    ax = torch.where(singular, torch.atan2(-R[..., 0, 1], R[..., 0, 0]),
+                     torch.atan2(R[..., 1, 0], R[..., 1, 1]))
+    ay = torch.atan2(-R[..., 1, 2], sy)
+    az = torch.where(singular, torch.zeros_like(sy),
+                     torch.atan2(R[..., 0, 2], R[..., 2, 2]))
+    return ax, ay, az
+
+
+def compose_R(roll, pitch, yaw, degrees: bool = True):
+    """The reference's `composeR`: 'szxy' Euler angles -> R (..., 3, 3)."""
+    s = torch.pi / 180.0 if degrees else 1.0
+    return euler_matrix(roll * s, pitch * s, yaw * s)
+
+
+def compose_transform(R, T):
+    """The reference's `composeTransform`: H = [R | -R·T]."""
+    return create_homog(R, -(R @ T.reshape(R.shape[:-2] + (3, 1)))[..., 0])
+
+
+def get_motion(H, degrees: bool = True):
+    """The reference's `getMotion`: H -> ([roll, pitch, yaw], xyz)."""
+    ang = torch.stack(euler_from_matrix(H[..., :3, :3]), -1)
+    if degrees:
+        ang = ang * (180.0 / torch.pi)
+    return ang, H[..., :3, 3]
+
+
 def invert_homog(H):
     """Rigid inverse: [R|t]⁻¹ = [Rᵀ | -Rᵀ t]."""
     R = H[..., :3, :3]

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of `front_end_tpu_torch`,
 and `chip_smoke.py`, loads neither JAX nor anything of the JAX package;
-`chip_smoke.py` refuses to run, and prints no result, without a card."""
+nor does the port's command line, which does not load the root
+`bench.py` either; `chip_smoke.py` refuses to run, and prints no result,
+without a card."""
 import json
 import os
 import shutil
@@ -37,7 +39,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 41, out.stdout
+    assert int(count) >= 65, out.stdout
     assert bad == "[]", bad
 
 
@@ -66,8 +68,36 @@ def test_every_module_of_the_port_is_walked():
                 "ops.surf", "ops.subpix",
                 "ops.kernels.fast_detect", "ops.kernels.fast_margins",
                 "pipeline.control", "pipeline.window_vo", "window.tracker",
-                "ba.factors", "ba.schur"):
+                "ba.factors", "ba.schur",
+                "cli", "io.feed", "io.kitti", "io.euroc", "io.rectify",
+                "io.native_feed", "native", "pipeline.telemetry",
+                "utils.checkpoint", "utils.png", "eval.metrics", "viz.draw",
+                "sim.synthetic"):
         assert f"front_end_tpu_torch.{mod}" in names, mod
+
+
+def test_cli_help_loads_no_jax_and_no_bench():
+    """`python -m front_end_tpu_torch.cli --help` (and each command's
+    help) loads no `jax`, `flax`, `front_end_tpu` or root `bench`
+    module, and lists only the commands the port has."""
+    code = (
+        "import runpy, sys\n"
+        "for argv in (['--help'], ['vo', '--help'], "
+        "['detect-sweep', '--help']):\n"
+        "    sys.argv = ['front_end_tpu_torch.cli', *argv]\n"
+        "    try:\n"
+        "        runpy.run_module('front_end_tpu_torch.cli', "
+        "run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'front_end_tpu', 'bench')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    assert "{gen-table,detect-sweep,ransac-smoke,vo}" in out.stdout
+    assert "--shard-ba" not in out.stdout and "--device" in out.stdout
 
 
 def _last_json(stdout):
