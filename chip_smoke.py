@@ -115,17 +115,42 @@ Phases, each of which exits non-zero on failure:
      `REMAP_CARD_TOL`, `vo --euroc` with stereo matches beside the raw
      pair's; (g) `detect-sweep` for FAST and ORB, records equal to the
      service's called directly;
-  8. a JSON line describing every kernel (`launches_by_path` with a `cli`
-     entry), the card line, and as the last line {"ok": true, "device":
-     {...}}.
+  8. the studies and the distributed BA: (a) the estimator study
+     (`analysis.sweeps`) on 16 conditions, the 4 methods x `medium` x 250
+     landmarks x noise {0, 1} px x outliers {0, 10 %}, a batch of 64
+     worlds each, drawn on the host and estimated on the card by one
+     vmapped call per method, ms per condition split into drawing and
+     estimating, the noise-free medians near 0, `run_study` then skipping
+     every file, and PCL and Nister at (1 px, 10 %) again on the CPU with
+     the same draws: per-world motions within `STUDY_H_TOL` but for up to
+     `NISTER_FORKS` forked Nister worlds; (b)
+     `ba-scaling`'s measurement at the JAX command's defaults (32768
+     landmarks, W = 3, 8 iterations) at 1 and 2 ranks on the one card
+     (gloo, tensors on the card), the 2-rank cost and poses within
+     `SHARD_COST_RTOL` / `SHARD_POSE_TOL` of one rank's, the counted
+     all-reduces equal to the audit, wall and CPU ms; (c) `vo --window
+     --shard-ba 2` over phase 7's KITTI layout: BA from frame 2, positions
+     and BA rms within `SHARD_POS_TOL` / `SHARD_RMS_TOL` of phase 7's
+     unsharded `--window` run, ms/frame of both; (d) `report` on (a)'s
+     study and phase 7's recording (every referenced SVG present and
+     parsed, the timing table's configurations, desc+match ms) and
+     `explore --family FAST --frames 2`, launch counters reset before and
+     read after each (`report`: grid, keypoint BRIEF and match kernels;
+     `explore`: the margin kernel), and the match kernel at the report's
+     4 words against its twin;
+  9. a JSON line describing every kernel (`launches_by_path` with `cli`,
+     `report` and `explore` entries), the card line, and as the last line
+     {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -194,6 +219,26 @@ FEED_DEPTH = 2
 # contract the bilinear weights into fused multiply-adds (a few ulp)
 REMAP_CARD_TOL = 1e-3
 SLEEP_CYCLES_S = 1.98e9   # `torch.cuda._sleep` spins this many clocks a second
+# phase 8, the studies and the distributed BA
+STUDY_BATCH = 64               # the study's batch of worlds per condition
+STUDY_POINTS = 250             # the `medium` curve's landmark count
+STUDY_LEVELS = ((0.0, 0.0), (0.0, 0.1), (1.0, 0.0), (1.0, 0.1))
+# a study condition (1 px, 10 % outliers) card vs CPU on the same draws,
+# the estimated motion of each world: every rotation entry and the
+# translation (m) within STUDY_H_TOL (measured on the H100: PCL 1.9e-6,
+# Nister 1.5e-5), the consensus counts equal.  Nister's RANSAC may fork
+# in up to NISTER_FORKS of the 64 worlds, one in 8 as
+# `tests/test_torch_sweeps.py` allows against the JAX package (a score a
+# row apart elects another hypothesis; measured: 2 worlds, 7.1e-3 m),
+# each within NISTER_ROWS rows of consensus
+STUDY_H_TOL = 1e-4
+NISTER_FORKS, NISTER_ROWS = 8, 3
+# the sharded BA against one rank (`tests/test_ba.py`'s bounds)
+SHARD_COST_RTOL, SHARD_POSE_TOL = 1e-3, 1e-4
+# the sharded windowed run against the unsharded one
+# (`tests/test_sharded_window.py`'s bounds)
+SHARD_POS_TOL, SHARD_RMS_TOL = 2e-3, 5e-2
+SHARD_RANKS = 2
 
 
 def fail(msg: str) -> None:
@@ -421,16 +466,30 @@ def write_euroc(root: Path, n: int):
     return rig
 
 
-def cli_phase(torch, dev, card, lefts, rights, rig, cfg, poses_mem,
-              ms_frame, reset_counts, read_counts) -> dict:
-    """Phase 7: the command line on a KITTI and a EuRoC layout written to
-    a temporary directory.  Returns the launches of all its CLI runs."""
+def run_cli(torch, argv, reset_counts, read_counts):
+    """`cli.main(argv)` on the card, launch counters reset just before and
+    read just after; -> (stdout, counts)."""
     import contextlib
     import io
-    import shutil
-    import tempfile
 
-    from front_end_tpu_torch import cli, native, services
+    from front_end_tpu_torch import cli
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return out.getvalue(), read_counts()
+
+
+def cli_phase(torch, dev, card, lefts, rights, rig, cfg, poses_mem,
+              ms_frame, reset_counts, read_counts, tmp: Path):
+    """Phase 7: the command line on a KITTI and a EuRoC layout written
+    under `tmp`.  Returns the launches of all its CLI runs, and what phase
+    8 reads: the KITTI root, the `--window` run's trajectory, recording and
+    ms/frame, and the recording of the `vo` run."""
+    from front_end_tpu_torch import native, services
     from front_end_tpu_torch.eval import metrics
     from front_end_tpu_torch.io import euroc, kitti, native_feed
     from front_end_tpu_torch.io.feed import DeviceFeed
@@ -448,304 +507,569 @@ def cli_phase(torch, dev, card, lefts, rights, rig, cfg, poses_mem,
     gt[:, 0, 3] = step_m * np.arange(n)
     total = {}
 
-    def run_cli(argv, expect=None):
-        """`cli.main(argv)` on the card, launch counters reset just before
-        and read just after; -> (stdout, counts)."""
-        out = io.StringIO()
-        torch.cuda.synchronize()
-        reset_counts()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(argv)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        check(rc == 0, f"cli {argv[0]} returned {rc}")
+    def run_counted(argv, expect=None):
+        text, counts = run_cli(torch, argv, reset_counts, read_counts)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         if expect is not None:
             check(counts == expect, f"cli {' '.join(argv[:2])}: launches "
                   f"{counts}, want {expect}")
-        return out.getvalue(), counts
+        return text, counts
 
     def launches(grid_, brief, match):
         return {"fast_grid": grid_, "brief_planes": 0,
                 "brief_keypoints": brief, "match_reduce": match,
                 "fast_detect": 0, "fast_margins": 0}
 
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    try:
-        # (a) the KITTI layout, read back
-        root = tmp / "kitti"
-        write_kitti(root, L8, R8, rig, gt)
-        seq = kitti.KittiSequence(str(root), "00")
-        check(seq.rig == rig, f"calib.txt read back as {seq.rig}")
-        for i in range(n):
-            a, b = seq[i]
-            check(np.array_equal(a, L8[i]) and np.array_equal(b, R8[i]),
-                  f"KITTI frame {i} read back differs")
-        lp, rp = seq.paths()
+    # (a) the KITTI layout, read back
+    root = tmp / "kitti"
+    write_kitti(root, L8, R8, rig, gt)
+    seq = kitti.KittiSequence(str(root), "00")
+    check(seq.rig == rig, f"calib.txt read back as {seq.rig}")
+    for i in range(n):
+        a, b = seq[i]
+        check(np.array_equal(a, L8[i]) and np.array_equal(b, R8[i]),
+              f"KITTI frame {i} read back differs")
+    lp, rp = seq.paths()
+    t0 = time.perf_counter()
+    for p in lp + rp:
+        kitti._read_image(p)
+    read_ms = (time.perf_counter() - t0) / (2 * n) * 1e3
+    t0 = time.perf_counter()
+    for p in lp + rp:
+        png.read(p)
+    zlib_ms = (time.perf_counter() - t0) / (2 * n) * 1e3
+    import importlib.util
+    reader = ("PIL" if importlib.util.find_spec("PIL") else
+              "the port's zlib decoder")
+    print(f"CLI phase: KITTI layout of {n} frames read back equal; "
+          f"decode {read_ms:.3f} ms/image ({reader}), {zlib_ms:.3f} "
+          f"ms/image (the port's zlib decoder) [{card}]", flush=True)
+    try:        # builds and loads csrc/feed.cc, which needs libpng
+        native_feed.NativeStereoFeed(lp[:1], rp[:1], rig.height,
+                                     rig.width).close()
+        have_native = True
+    except (native.NativeBuildError, OSError) as e:
+        check("png" in str(e), f"native feed build or load failed: {e}")
+        have_native = False
+        first = next((ln for ln in str(e).splitlines() if "png" in ln),
+                     "")
+        print(f"native feed: left out, libpng is not on this machine "
+              f"({first.strip()})", flush=True)
+    if have_native:
         t0 = time.perf_counter()
-        for p in lp + rp:
-            kitti._read_image(p)
-        read_ms = (time.perf_counter() - t0) / (2 * n) * 1e3
-        t0 = time.perf_counter()
-        for p in lp + rp:
-            png.read(p)
-        zlib_ms = (time.perf_counter() - t0) / (2 * n) * 1e3
-        import importlib.util
-        reader = ("PIL" if importlib.util.find_spec("PIL") else
-                  "the port's zlib decoder")
-        print(f"CLI phase: KITTI layout of {n} frames read back equal; "
-              f"decode {read_ms:.3f} ms/image ({reader}), {zlib_ms:.3f} "
-              f"ms/image (the port's zlib decoder) [{card}]", flush=True)
-        try:        # builds and loads csrc/feed.cc, which needs libpng
-            native_feed.NativeStereoFeed(lp[:1], rp[:1], rig.height,
-                                         rig.width).close()
-            have_native = True
-        except (native.NativeBuildError, OSError) as e:
-            check("png" in str(e), f"native feed build or load failed: {e}")
-            have_native = False
-            first = next((ln for ln in str(e).splitlines() if "png" in ln),
-                         "")
-            print(f"native feed: left out, libpng is not on this machine "
-                  f"({first.strip()})", flush=True)
-        if have_native:
-            t0 = time.perf_counter()
-            with native_feed.NativeStereoFeed(lp, rp, rig.height, rig.width,
-                                              ring=4, threads=4) as feed:
-                got = list(feed)
-            native_ms = (time.perf_counter() - t0) / n * 1e3
-            check(len(got) == n and all(
-                np.array_equal(a, L8[i]) and np.array_equal(b, R8[i])
-                for i, (a, b) in enumerate(got)),
-                "NativeStereoFeed frames differ from the source")
-            with native_feed.NativeStereoFeed(lp, rp, rig.height, rig.width,
-                                              ring=2, threads=4) as feed:
-                got = list(DeviceFeed(feed.frames_zero_copy(),
-                                      depth=FEED_DEPTH, device=dev))
-            torch.cuda.synchronize()
-            check(all(torch.equal(a.cpu(), torch.from_numpy(L8[i]))
-                      and torch.equal(b.cpu(), torch.from_numpy(R8[i]))
-                      for i, (a, b) in enumerate(got)),
-                  "NativeStereoFeed -> DeviceFeed frames differ")
-            print(f"native feed: {n} pairs equal, {native_ms:.3f} ms/pair "
-                  f"(4 decoder threads), and through a depth-"
-                  f"{FEED_DEPTH} DeviceFeed onto the card equal [{card}]",
-                  flush=True)
-
-        # the card's run-to-run spread on the in-memory path
-        s = vo.init_state(rig, cfg, seed=0, device=dev)
-        _, o = vo.run_sequence(s, torch.as_tensor(L8).to(dev),
-                               torch.as_tensor(R8).to(dev), rig, cfg)
-        mem = poses_mem.double().numpy()
-        spread = float(np.abs(o.pose.cpu().double().numpy() - mem).max())
-        print(f"card run to run: in-memory trajectories differ by at most "
-              f"{spread:.3e}", flush=True)
-
-        # (b) `cli vo --kitti` with a recording
-        rec, traj = str(tmp / "rec"), str(tmp / "traj.txt")
-        text, _ = run_cli(["vo", "--kitti", str(root), "--frames", str(n),
-                           "--record", rec, "--out", traj],
-                          launches(n, n, 2 * n))
-        est = np.loadtxt(traj)
-        check(est.shape == (n, 12), f"--out holds {est.shape}")
-        diff = float(np.abs(est - mem[:, :3, :].reshape(n, 12)).max())
-        check(diff <= spread, f"cli trajectory differs from run_sequence's "
-              f"by {diff} (run-to-run spread {spread})")
-        drift = float(np.linalg.norm(est[-1, [3, 7, 11]] - gt[-1, :3, 3]))
-        check(drift < 0.05 * gt[-1, 0, 3], f"cli final position "
-              f"{est[-1, [3, 7, 11]]} vs {gt[-1, :3, 3]}")
-        P = np.tile(np.eye(4), (n, 1, 1))
-        P[:, :3, :] = est.reshape(n, 3, 4)
-        ate = metrics.ate_rmse(P[:, :3, 3], gt[:, :3, 3])
-        rpe = metrics.rpe(P, gt)
-        check("ATE RMSE" in text, "cli vo printed no ATE")
-        stages, counters, meta = telemetry.load_log(rec)
-        check(stages["frame"].shape == (n,) and set(counters) == {
-            "n_detect_l", "n_stereo", "n_tracks", "n_inliers"},
-            f"recording {list(stages)} {list(counters)}")
-        check(meta["platform"] == torch.cuda.get_device_name(dev),
-              f"recorded platform {meta['platform']}")
-        rec_ms = float(np.median(stages["frame"])) * 1e3
-        t0 = time.perf_counter()
-        run_cli(["vo", "--kitti", str(root), "--frames", str(n)],
-                launches(n, n, 2 * n))
-        wall_ms = (time.perf_counter() - t0) / n * 1e3
-        # where the command line's time goes: the step over frames in
-        # memory (float32, as phase 3), behind the feed (its thread, or
-        # inline), over frames decoded from the files behind the feed, and
-        # the decode alone; interleaved, median of 3 runs each
-        Lf = torch.as_tensor(lefts[:n]).to(dev)
-        Rf = torch.as_tensor(rights[:n]).to(dev)
-        sources = {
-            "in memory": lambda: zip(Lf, Rf),
-            "feed": lambda: DeviceFeed(zip(L8, R8), device=dev),
-            "feed inline": lambda: DeviceFeed(zip(L8, R8), device=dev,
-                                              threaded=False),
-            "decode + feed": lambda: DeviceFeed(seq.frames(), device=dev),
-            "decode + feed inline": lambda: DeviceFeed(
-                seq.frames(), device=dev, threaded=False),
-            "decode alone": None}
-        runs = {k: [] for k in sources}
-        for _ in range(3):
-            for k, frames in sources.items():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                if frames is None:
-                    for _ in seq.frames():
-                        pass
-                else:
-                    s = vo.init_state(rig, cfg, seed=0, device=dev)
-                    for a, b in frames():
-                        s, _ = vo.vo_step(s, a, b, rig, cfg)
-                torch.cuda.synchronize()
-                runs[k].append((time.perf_counter() - t0) / n * 1e3)
-        print("ms/frame, interleaved, median of 3: " + ", ".join(
-            f"{k} {np.median(v):.3f} {[round(x, 3) for x in v]}"
-            for k, v in runs.items()) + f" [{card}]", flush=True)
-        print(f"cli vo --kitti: {n} frames, launches 1 / 1 / 2 a frame, "
-              f"trajectory equal to run_sequence's (max diff {diff:.3e}), "
-              f"drift {drift:.4f} m, ATE {ate:.6f} m, RPE "
-              f"{rpe['trans_rmse_m']:.6f} m / {rpe['rot_rmse_deg']:.6f} deg;"
-              f" recorded frame median {rec_ms:.3f} ms, cli wall "
-              f"{wall_ms:.3f} ms/frame (decode, feed and step), in-memory "
-              f"vo_step {ms_frame:.3f} (phase 3) [{card}]", flush=True)
-
-        # (c) --save-state after half, --resume for the rest
-        ck, traj_c = str(tmp / "ck"), str(tmp / "traj_c.txt")
-        half = n // 2
-        run_cli(["vo", "--kitti", str(root), "--frames", str(half),
-                 "--save-state", ck], launches(half, half, 2 * half))
-        run_cli(["vo", "--kitti", str(root), "--frames", str(n),
-                 "--resume", ck, "--out", traj_c],
-                launches(n - half, n - half, 2 * (n - half)))
-        rdiff = float(np.abs(np.loadtxt(traj_c) - est).max())
-        check(rdiff <= spread, f"resumed trajectory differs by {rdiff} "
-              f"(run-to-run spread {spread})")
-        wcfg = window_vo.WindowVOConfig.create(cfg)
-        ws, _ = window_vo.run_sequence(
-            window_vo.init_state(rig, wcfg, seed=0, device=dev),
-            torch.as_tensor(L8[:3]).to(dev), torch.as_tensor(R8[:3]).to(dev),
-            rig, wcfg)
-        wpath = str(tmp / "win.npz")
-        save_ms, load_ms = [], []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            checkpoint.save_state(wpath, ws)
-            save_ms.append((time.perf_counter() - t0) * 1e3)
-            tmpl = window_vo.init_state(rig, wcfg, seed=9, device=dev)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            back = checkpoint.load_state(wpath, tmpl)
-            torch.cuda.synchronize()
-            load_ms.append((time.perf_counter() - t0) * 1e3)
-        check(same(torch, back.win.store.packed, ws.win.store.packed)
-              and torch.equal(back.win.store.bits, ws.win.store.bits)
-              and torch.equal(back.vo.generator.get_state(),
-                              ws.vo.generator.get_state()),
-              "windowed checkpoint round trip on the card")
-        mb = Path(wpath).stat().st_size / 1e6
-        print(f"cli resume: {half} + {n - half} frames, trajectory equal to "
-              f"the uninterrupted run's (max diff {rdiff:.3e}); windowed "
-              f"checkpoint ({mb:.1f} MB) save {min(save_ms):.3f} ms, load "
-              f"{min(load_ms):.3f} ms (best of 3) [{card}]", flush=True)
-
-        # (d) --window
-        nw = CLI_WINDOW_FRAMES
-        traj_w = str(tmp / "traj_w.txt")
-        run_cli(["vo", "--kitti", str(root), "--frames", str(nw),
-                 "--window", "--out", traj_w], launches(nw, nw, 3 * nw))
-        ew = np.loadtxt(traj_w)
-        wdrift = float(np.linalg.norm(ew[-1, [3, 7, 11]] - gt[nw - 1, :3, 3]))
-        check(np.isfinite(ew).all() and wdrift < 0.05 * gt[nw - 1, 0, 3],
-              f"cli --window final position {ew[-1, [3, 7, 11]]}")
-        print(f"cli vo --window: {nw} frames, launches 1 / 1 / 3 a frame, "
-              f"drift {wdrift:.4f} m", flush=True)
-
-        # (e) the pinned ring, smaller than the sequence
-        got = list(DeviceFeed(zip(L8, R8), depth=FEED_DEPTH, device=dev))
-        torch.cuda.synchronize()
+        with native_feed.NativeStereoFeed(lp, rp, rig.height, rig.width,
+                                          ring=4, threads=4) as feed:
+            got = list(feed)
+        native_ms = (time.perf_counter() - t0) / n * 1e3
         check(len(got) == n and all(
-            l.dtype == torch.uint8 and torch.equal(l.cpu(),
-                                                   torch.from_numpy(L8[i]))
-            and torch.equal(r.cpu(), torch.from_numpy(R8[i]))
-            for i, (l, r) in enumerate(got)),
-            f"DeviceFeed (depth {FEED_DEPTH}) frames differ from the source")
-        h2d = {}
-        for dt in (np.uint8, np.float32):
-            pairs = [tuple(torch.from_numpy(a.astype(dt)).pin_memory()
-                           for a in (L8[i], R8[i])) for i in range(n)]
-            it = iter(range(10 ** 9))
-            h2d[dt.__name__] = cuda_ms(torch, lambda: [
-                t.to(dev, non_blocking=True)
-                for t in pairs[next(it) % n]], 40) * 1e3
-        mb8 = 2 * L8[0].nbytes / 1e6
-        print(f"DeviceFeed: {n} pairs through a depth-{FEED_DEPTH} pinned "
-              f"ring, byte-equal; H2D per pair {h2d['uint8']:.3f} us uint8 "
-              f"({mb8:.2f} MB, {mb8 / h2d['uint8'] * 1e3:.1f} GB/s), "
-              f"{h2d['float32']:.3f} us float32 ({4 * mb8:.2f} MB, "
-              f"{4 * mb8 / h2d['float32'] * 1e3:.1f} GB/s) [{card}]",
+            np.array_equal(a, L8[i]) and np.array_equal(b, R8[i])
+            for i, (a, b) in enumerate(got)),
+            "NativeStereoFeed frames differ from the source")
+        with native_feed.NativeStereoFeed(lp, rp, rig.height, rig.width,
+                                          ring=2, threads=4) as feed:
+            got = list(DeviceFeed(feed.frames_zero_copy(),
+                                  depth=FEED_DEPTH, device=dev))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.cpu(), torch.from_numpy(L8[i]))
+                  and torch.equal(b.cpu(), torch.from_numpy(R8[i]))
+                  for i, (a, b) in enumerate(got)),
+              "NativeStereoFeed -> DeviceFeed frames differ")
+        print(f"native feed: {n} pairs equal, {native_ms:.3f} ms/pair "
+              f"(4 decoder threads), and through a depth-"
+              f"{FEED_DEPTH} DeviceFeed onto the card equal [{card}]",
               flush=True)
 
-        # (f) EuRoC: rectified on the card
+    # the card's run-to-run spread on the in-memory path
+    s = vo.init_state(rig, cfg, seed=0, device=dev)
+    _, o = vo.run_sequence(s, torch.as_tensor(L8).to(dev),
+                           torch.as_tensor(R8).to(dev), rig, cfg)
+    mem = poses_mem.double().numpy()
+    spread = float(np.abs(o.pose.cpu().double().numpy() - mem).max())
+    print(f"card run to run: in-memory trajectories differ by at most "
+          f"{spread:.3e}", flush=True)
+
+    # (b) `cli vo --kitti` with a recording
+    rec, traj = str(tmp / "rec"), str(tmp / "traj.txt")
+    text, _ = run_counted(["vo", "--kitti", str(root), "--frames", str(n),
+                           "--record", rec, "--out", traj],
+                          launches(n, n, 2 * n))
+    est = np.loadtxt(traj)
+    check(est.shape == (n, 12), f"--out holds {est.shape}")
+    diff = float(np.abs(est - mem[:, :3, :].reshape(n, 12)).max())
+    check(diff <= spread, f"cli trajectory differs from run_sequence's "
+          f"by {diff} (run-to-run spread {spread})")
+    drift = float(np.linalg.norm(est[-1, [3, 7, 11]] - gt[-1, :3, 3]))
+    check(drift < 0.05 * gt[-1, 0, 3], f"cli final position "
+          f"{est[-1, [3, 7, 11]]} vs {gt[-1, :3, 3]}")
+    P = np.tile(np.eye(4), (n, 1, 1))
+    P[:, :3, :] = est.reshape(n, 3, 4)
+    ate = metrics.ate_rmse(P[:, :3, 3], gt[:, :3, 3])
+    rpe = metrics.rpe(P, gt)
+    check("ATE RMSE" in text, "cli vo printed no ATE")
+    stages, counters, meta = telemetry.load_log(rec)
+    check(stages["frame"].shape == (n,) and set(counters) == {
+        "n_detect_l", "n_stereo", "n_tracks", "n_inliers"},
+        f"recording {list(stages)} {list(counters)}")
+    check(meta["platform"] == torch.cuda.get_device_name(dev),
+          f"recorded platform {meta['platform']}")
+    rec_ms = float(np.median(stages["frame"])) * 1e3
+    t0 = time.perf_counter()
+    run_counted(["vo", "--kitti", str(root), "--frames", str(n)],
+                launches(n, n, 2 * n))
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    # where the command line's time goes: the step over frames in
+    # memory (float32, as phase 3), behind the feed (its thread, or
+    # inline), over frames decoded from the files behind the feed, and
+    # the decode alone; interleaved, median of 3 runs each
+    Lf = torch.as_tensor(lefts[:n]).to(dev)
+    Rf = torch.as_tensor(rights[:n]).to(dev)
+    sources = {
+        "in memory": lambda: zip(Lf, Rf),
+        "feed": lambda: DeviceFeed(zip(L8, R8), device=dev),
+        "feed inline": lambda: DeviceFeed(zip(L8, R8), device=dev,
+                                          threaded=False),
+        "decode + feed": lambda: DeviceFeed(seq.frames(), device=dev),
+        "decode + feed inline": lambda: DeviceFeed(
+            seq.frames(), device=dev, threaded=False),
+        "decode alone": None}
+    runs = {k: [] for k in sources}
+    for _ in range(3):
+        for k, frames in sources.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if frames is None:
+                for _ in seq.frames():
+                    pass
+            else:
+                s = vo.init_state(rig, cfg, seed=0, device=dev)
+                for a, b in frames():
+                    s, _ = vo.vo_step(s, a, b, rig, cfg)
+            torch.cuda.synchronize()
+            runs[k].append((time.perf_counter() - t0) / n * 1e3)
+    print("ms/frame, interleaved, median of 3: " + ", ".join(
+        f"{k} {np.median(v):.3f} {[round(x, 3) for x in v]}"
+        for k, v in runs.items()) + f" [{card}]", flush=True)
+    print(f"cli vo --kitti: {n} frames, launches 1 / 1 / 2 a frame, "
+          f"trajectory equal to run_sequence's (max diff {diff:.3e}), "
+          f"drift {drift:.4f} m, ATE {ate:.6f} m, RPE "
+          f"{rpe['trans_rmse_m']:.6f} m / {rpe['rot_rmse_deg']:.6f} deg;"
+          f" recorded frame median {rec_ms:.3f} ms, cli wall "
+          f"{wall_ms:.3f} ms/frame (decode, feed and step), in-memory "
+          f"vo_step {ms_frame:.3f} (phase 3) [{card}]", flush=True)
+
+    # (c) --save-state after half, --resume for the rest
+    ck, traj_c = str(tmp / "ck"), str(tmp / "traj_c.txt")
+    half = n // 2
+    run_counted(["vo", "--kitti", str(root), "--frames", str(half),
+                 "--save-state", ck], launches(half, half, 2 * half))
+    run_counted(["vo", "--kitti", str(root), "--frames", str(n),
+                 "--resume", ck, "--out", traj_c],
+                launches(n - half, n - half, 2 * (n - half)))
+    rdiff = float(np.abs(np.loadtxt(traj_c) - est).max())
+    check(rdiff <= spread, f"resumed trajectory differs by {rdiff} "
+          f"(run-to-run spread {spread})")
+    wcfg = window_vo.WindowVOConfig.create(cfg)
+    ws, _ = window_vo.run_sequence(
+        window_vo.init_state(rig, wcfg, seed=0, device=dev),
+        torch.as_tensor(L8[:3]).to(dev), torch.as_tensor(R8[:3]).to(dev),
+        rig, wcfg)
+    wpath = str(tmp / "win.npz")
+    save_ms, load_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        erig = write_euroc(tmp / "euroc", EUROC_FRAMES)
-        render_s = time.perf_counter() - t0
-        seq_dir = str(tmp / "euroc" / "S")
-        rc_card = euroc.build_rectifier(seq_dir, device=dev)
-        rc_cpu = euroc.build_rectifier(seq_dir, device="cpu")
-        check(rc_card.rig() == erig, f"rectified rig {rc_card.rig()}")
-        raw = euroc.EurocSequence(str(tmp / "euroc"), "S", rectify=False)
-        rerr = 0.0
-        for i in range(EUROC_FRAMES):
-            l, r = raw[i]
-            for g, c in zip(rc_card(l, r), rc_cpu(l, r)):
-                rerr = max(rerr, float((g.cpu() - c).abs().max()))
-        check(rerr <= REMAP_CARD_TOL, f"remap card vs CPU differs by {rerr}")
-        l, r = (torch.as_tensor(a).to(dev) for a in raw[0])
-        remap_ms = cuda_ms(torch, lambda: rc_card(l, r), 20)
-        erec = str(tmp / "erec")
-        run_cli(["vo", "--euroc", str(tmp / "euroc"), "--seq", "S",
+        checkpoint.save_state(wpath, ws)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        tmpl = window_vo.init_state(rig, wcfg, seed=9, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = checkpoint.load_state(wpath, tmpl)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    check(same(torch, back.win.store.packed, ws.win.store.packed)
+          and torch.equal(back.win.store.bits, ws.win.store.bits)
+          and torch.equal(back.vo.generator.get_state(),
+                          ws.vo.generator.get_state()),
+          "windowed checkpoint round trip on the card")
+    mb = Path(wpath).stat().st_size / 1e6
+    print(f"cli resume: {half} + {n - half} frames, trajectory equal to "
+          f"the uninterrupted run's (max diff {rdiff:.3e}); windowed "
+          f"checkpoint ({mb:.1f} MB) save {min(save_ms):.3f} ms, load "
+          f"{min(load_ms):.3f} ms (best of 3) [{card}]", flush=True)
+
+    # (d) --window
+    nw = CLI_WINDOW_FRAMES
+    traj_w, rec_w = str(tmp / "traj_w.txt"), str(tmp / "rec_w")
+    run_counted(["vo", "--kitti", str(root), "--frames", str(nw),
+                 "--window", "--out", traj_w, "--record", rec_w],
+                launches(nw, nw, 3 * nw))
+    ew = np.loadtxt(traj_w)
+    wdrift = float(np.linalg.norm(ew[-1, [3, 7, 11]] - gt[nw - 1, :3, 3]))
+    check(np.isfinite(ew).all() and wdrift < 0.05 * gt[nw - 1, 0, 3],
+          f"cli --window final position {ew[-1, [3, 7, 11]]}")
+    print(f"cli vo --window: {nw} frames, launches 1 / 1 / 3 a frame, "
+          f"drift {wdrift:.4f} m", flush=True)
+
+    # (e) the pinned ring, smaller than the sequence
+    got = list(DeviceFeed(zip(L8, R8), depth=FEED_DEPTH, device=dev))
+    torch.cuda.synchronize()
+    check(len(got) == n and all(
+        l.dtype == torch.uint8 and torch.equal(l.cpu(),
+                                               torch.from_numpy(L8[i]))
+        and torch.equal(r.cpu(), torch.from_numpy(R8[i]))
+        for i, (l, r) in enumerate(got)),
+        f"DeviceFeed (depth {FEED_DEPTH}) frames differ from the source")
+    h2d = {}
+    for dt in (np.uint8, np.float32):
+        pairs = [tuple(torch.from_numpy(a.astype(dt)).pin_memory()
+                       for a in (L8[i], R8[i])) for i in range(n)]
+        it = iter(range(10 ** 9))
+        h2d[dt.__name__] = cuda_ms(torch, lambda: [
+            t.to(dev, non_blocking=True)
+            for t in pairs[next(it) % n]], 40) * 1e3
+    mb8 = 2 * L8[0].nbytes / 1e6
+    print(f"DeviceFeed: {n} pairs through a depth-{FEED_DEPTH} pinned "
+          f"ring, byte-equal; H2D per pair {h2d['uint8']:.3f} us uint8 "
+          f"({mb8:.2f} MB, {mb8 / h2d['uint8'] * 1e3:.1f} GB/s), "
+          f"{h2d['float32']:.3f} us float32 ({4 * mb8:.2f} MB, "
+          f"{4 * mb8 / h2d['float32'] * 1e3:.1f} GB/s) [{card}]",
+          flush=True)
+
+    # (f) EuRoC: rectified on the card
+    t0 = time.perf_counter()
+    erig = write_euroc(tmp / "euroc", EUROC_FRAMES)
+    render_s = time.perf_counter() - t0
+    seq_dir = str(tmp / "euroc" / "S")
+    rc_card = euroc.build_rectifier(seq_dir, device=dev)
+    rc_cpu = euroc.build_rectifier(seq_dir, device="cpu")
+    check(rc_card.rig() == erig, f"rectified rig {rc_card.rig()}")
+    raw = euroc.EurocSequence(str(tmp / "euroc"), "S", rectify=False)
+    rerr = 0.0
+    for i in range(EUROC_FRAMES):
+        l, r = raw[i]
+        for g, c in zip(rc_card(l, r), rc_cpu(l, r)):
+            rerr = max(rerr, float((g.cpu() - c).abs().max()))
+    check(rerr <= REMAP_CARD_TOL, f"remap card vs CPU differs by {rerr}")
+    l, r = (torch.as_tensor(a).to(dev) for a in raw[0])
+    remap_ms = cuda_ms(torch, lambda: rc_card(l, r), 20)
+    erec = str(tmp / "erec")
+    run_counted(["vo", "--euroc", str(tmp / "euroc"), "--seq", "S",
                  "--record", erec],
                 launches(EUROC_FRAMES, EUROC_FRAMES, 2 * EUROC_FRAMES))
-        ecount = telemetry.load_log(erec)[1]["n_stereo"]
-        rrig = euroc.load_rig(seq_dir)
-        st = vo.init_state(rrig, cfg, device=dev)
-        raw_count = []
-        for i in range(EUROC_FRAMES):
-            st, o = vo.vo_step(st, *raw[i], rrig, cfg)
-            raw_count.append(int(o.n_stereo))
-        check(ecount.min() > 50 and ecount.min() > 1.5 * max(raw_count),
-              f"EuRoC stereo matches rectified {ecount.tolist()}, raw "
-              f"{raw_count}")
-        print(f"cli vo --euroc: {EUROC_FRAMES} frames at {EUROC_SIZE[1]}x"
-              f"{EUROC_SIZE[0]} (rendered in {render_s:.1f} s), remap card "
-              f"vs CPU max diff {rerr:.3e} (tolerance {REMAP_CARD_TOL}), "
-              f"{remap_ms * 1e3:.3f} us a pair on the card (both maps, "
-              f"uint8 frames already there); stereo "
-              f"matches rectified {ecount.astype(int).tolist()} against "
-              f"{raw_count} on the raw pair [{card}]", flush=True)
+    ecount = telemetry.load_log(erec)[1]["n_stereo"]
+    rrig = euroc.load_rig(seq_dir)
+    st = vo.init_state(rrig, cfg, device=dev)
+    raw_count = []
+    for i in range(EUROC_FRAMES):
+        st, o = vo.vo_step(st, *raw[i], rrig, cfg)
+        raw_count.append(int(o.n_stereo))
+    check(ecount.min() > 50 and ecount.min() > 1.5 * max(raw_count),
+          f"EuRoC stereo matches rectified {ecount.tolist()}, raw "
+          f"{raw_count}")
+    print(f"cli vo --euroc: {EUROC_FRAMES} frames at {EUROC_SIZE[1]}x"
+          f"{EUROC_SIZE[0]} (rendered in {render_s:.1f} s), remap card "
+          f"vs CPU max diff {rerr:.3e} (tolerance {REMAP_CARD_TOL}), "
+          f"{remap_ms * 1e3:.3f} us a pair on the card (both maps, "
+          f"uint8 frames already there); stereo "
+          f"matches rectified {ecount.astype(int).tolist()} against "
+          f"{raw_count} on the raw pair [{card}]", flush=True)
 
-        # (g) detect-sweep against the service called directly
-        L1, R1 = make_sequence(1)
-        for family, k, kernel in (("FAST", 10, "fast_margins"),
-                                  ("ORB", 4, "fast_detect")):
-            text, counts = run_cli(["detect-sweep", "--family", family,
+    # (g) detect-sweep against the service called directly
+    L1, R1 = make_sequence(1)
+    for family, k, kernel in (("FAST", 10, "fast_margins"),
+                              ("ORB", 4, "fast_detect")):
+        text, counts = run_counted(["detect-sweep", "--family", family,
                                     "--n", str(k)])
-            check(counts[kernel] > 0, f"detect-sweep {family}: {counts}")
-            from front_end_tpu_torch import features
-            ids = [i for i, v in features.detector_table().items()
-                   if v["Name"] == family][:k]
-            want = [f"{r['detID']}: L={r['leftFeatures']['nPoints']} "
-                    f"R={r['rightFeatures']['nPoints']}" for r in
-                    services.single_image_detection(ids, L1[0], R1[0])]
-            got = [ln.rsplit(" t=", 1)[0] for ln in text.splitlines()]
-            check(got == want, f"detect-sweep {family}: {got} vs {want}")
-            print(f"cli detect-sweep --family {family} --n {k}: records "
-                  f"equal to the service's, launches {counts}", flush=True)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return total
+        check(counts[kernel] > 0, f"detect-sweep {family}: {counts}")
+        from front_end_tpu_torch import features
+        ids = [i for i, v in features.detector_table().items()
+               if v["Name"] == family][:k]
+        want = [f"{r['detID']}: L={r['leftFeatures']['nPoints']} "
+                f"R={r['rightFeatures']['nPoints']}" for r in
+                services.single_image_detection(ids, L1[0], R1[0])]
+        got = [ln.rsplit(" t=", 1)[0] for ln in text.splitlines()]
+        check(got == want, f"detect-sweep {family}: {got} vs {want}")
+        print(f"cli detect-sweep --family {family} --n {k}: records "
+              f"equal to the service's, launches {counts}", flush=True)
+    return total, {"root": str(root), "traj_w": traj_w, "rec_w": rec_w,
+                   "rec": rec}
+
+
+def scaling_rank(rank, group, dev, args, out):
+    """A rank of phase 8(b): `ba-scaling`'s measurement at 1 and 2 ranks,
+    then one counted solve over both; rank 0 saves what the parent
+    checks."""
+    import torch
+    import torch.distributed as dist
+
+    from front_end_tpu_torch import cli
+    from front_end_tpu_torch.ba import distributed
+
+    results, wall, cpu = cli._ba_scaling_rank(rank, group, dev, args, True,
+                                              1)
+    rig, T0, *blocks = (a.to(dev) if isinstance(a, torch.Tensor) else a
+                        for a in cli._ba_scaling_problem(args, group.size()))
+    distributed.reset_counts()
+    res = distributed.ba_solve_sharded(
+        group, T0, *(distributed.local_block(a, rank, group.size())
+                     for a in blocks), rig, iters=args.iters)
+    torch.cuda.synchronize()
+    counts = (distributed.all_reduces, distributed.all_gathers)
+    on_card = all(t.is_cuda for t in (res.poses, res.landmarks, T0,
+                                      *blocks))
+    if rank == 0:
+        np.savez(out, poses1=results[1].poses.cpu().numpy(),
+                 cost1=results[1].cost.cpu().numpy(),
+                 poses2=results[2].poses.cpu().numpy(),
+                 cost2=results[2].cost.cpu().numpy(),
+                 poses=res.poses.cpu().numpy(), cost=res.cost.cpu().numpy(),
+                 rms=res.rms_px.cpu().numpy(), counts=np.array(counts),
+                 wall=np.array([wall[1], wall[2]]),
+                 cpu=np.array([cpu[1], cpu[2]]), on_card=on_card,
+                 device=str(dev), backend=dist.get_backend(group))
+
+
+def studies_phase(torch, dev, card, tmp: Path, ctx: dict, reset_counts,
+                  read_counts) -> tuple[dict, dict]:
+    """Phase 8: (a) the estimator study, (b) `ba-scaling` at 1 and 2 ranks,
+    (c) `vo --window --shard-ba 2`, (d) `report` and `explore`.  Returns
+    the launches of `report` and of `explore`, and the match kernel at 4
+    words (the report's BRIEF_16) against its twin."""
+    import argparse
+    import xml.etree.ElementTree as ET
+
+    from front_end_tpu_torch.analysis import report, sweeps
+    from front_end_tpu_torch.ba import distributed
+    from front_end_tpu_torch.geometry.camera import bumblebee_rig
+    from front_end_tpu_torch.ops import grid
+    from front_end_tpu_torch.ops.kernels import match_reduce
+    from front_end_tpu_torch.pipeline import telemetry
+    from front_end_tpu_torch.sim import synthetic as sim
+    from front_end_tpu_torch.sim.sequence import make_sequence
+
+    # (a) the study: 4 methods x medium x 250 landmarks x 2 noise x 2
+    # outlier levels, a batch of 64 worlds a condition, drawn on the host,
+    # estimated on the card by one vmapped call per method
+    srig, cat = bumblebee_rig(), sim.motion_category("medium")
+    study = tmp / "study"
+    study.mkdir()
+    cpu_draws, card_res = {}, {}
+    for method in sweeps.EXTRACTORS:
+        draw_ms, est_ms = [], []
+        for noise, frac in STUDY_LEVELS:
+            name = sweeps.condition_name(method, "medium", STUDY_POINTS,
+                                         noise, frac)
+            gen = torch.Generator().manual_seed(sweeps.condition_seed(0,
+                                                                      name))
+            t0 = time.perf_counter()
+            if method == "WindowBA":
+                draws = (sweeps.draw_window_condition(
+                    gen, srig, cat, STUDY_POINTS, noise, frac, STUDY_BATCH),)
+
+                def est(ww):
+                    return sweeps.estimate_window_condition(ww, srig)
+            else:
+                draws = sweeps.draw_condition(gen, method, srig, cat,
+                                              STUDY_POINTS, noise, frac,
+                                              STUDY_BATCH)
+
+                def est(w, s, method=method):
+                    return sweeps.estimate_condition(method, w, s, srig)
+            t1 = time.perf_counter()
+            on = [None if d is None else type(d)(*(f.to(dev) for f in d))
+                  if isinstance(d, tuple) else d.to(dev) for d in draws]
+            reps = 2 if not est_ms else 1        # the first call warms up
+            for _ in range(reps):
+                t2 = time.perf_counter()
+                res = est(*on)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+            res = {k: v.cpu().numpy() for k, v in res.items()}
+            check(all(v.shape == (STUDY_BATCH,) and np.isfinite(v).all()
+                      for v in res.values()), f"study {name}: {res}")
+            if noise == 0 and frac == 0:
+                check(np.median(res["rot_err_deg"]) < 0.1
+                      and np.median(res["trans_err_m"]) < 1e-3,
+                      f"study {name}: median errors "
+                      f"{np.median(res['rot_err_deg'])} deg, "
+                      f"{np.median(res['trans_err_m'])} m without noise")
+            np.savez(study / name, **res)
+            draw_ms.append((t1 - t0) * 1e3)
+            est_ms.append((t3 - t2) * 1e3)
+            cpu_draws[(method, noise, frac)] = draws
+            card_res[(method, noise, frac)] = res
+        meds = [f"{np.median(card_res[(method, n_, f_)]['rot_err_deg']):.4f}"
+                for n_, f_ in STUDY_LEVELS]
+        print(f"study {method}: {STUDY_BATCH} worlds x {STUDY_POINTS} "
+              f"landmarks a condition; draw (host) "
+              f"{', '.join(f'{v:.1f}' for v in draw_ms)} ms, estimate "
+              f"(card, one vmapped call) "
+              f"{', '.join(f'{v:.1f}' for v in est_ms)} ms per condition "
+              f"(levels {STUDY_LEVELS}); median rotation errors {meds} deg "
+              f"[{card}]", flush=True)
+    stats = sweeps.run_study(str(study), methods=sweeps.EXTRACTORS,
+                             speeds=("medium",), curves=(STUDY_POINTS,),
+                             noises=(0.0, 1.0), outliers=(0.0, 0.1),
+                             batch=STUDY_BATCH, verbose=False, device=dev)
+    check(stats == {"ran": 0, "skipped": 16}, f"study resume: {stats}")
+    for method in ("PCL", "Nister"):
+        worlds, sets = cpu_draws[(method, 1.0, 0.1)]
+        H_cpu, n_cpu = (v.numpy() for v in sweeps.estimate_motion(
+            method, worlds, sets, srig))
+        H, n_card = (v.cpu().numpy() for v in sweeps.estimate_motion(
+            method, type(worlds)(*(f.to(dev) for f in worlds)), sets.to(dev),
+            srig))
+        d_rot = np.abs(H[:, :3, :3] - H_cpu[:, :3, :3]).max((1, 2))
+        d_tr = np.linalg.norm(H[:, :3, 3] - H_cpu[:, :3, 3], axis=1)
+        d_inl = np.abs(n_card - n_cpu)
+        forked = (d_rot > STUDY_H_TOL) | (d_tr > STUDY_H_TOL)
+        held = ~forked
+        check(forked.sum() <= (NISTER_FORKS if method == "Nister" else 0)
+              and d_inl[held].max(initial=0) == 0
+              and d_inl.max() <= NISTER_ROWS,
+              f"study {method} (1 px, 10 %) card vs CPU: {forked.sum()} "
+              f"worlds past {STUDY_H_TOL}, the rest within rotation "
+              f"{d_rot[held].max(initial=0)}, translation "
+              f"{d_tr[held].max(initial=0)} m; consensus {d_inl.max()} "
+              f"rows apart")
+        print(f"study {method} (1 px, 10 % outliers) card vs CPU on the "
+              f"same draws, the estimated motion of each of the "
+              f"{STUDY_BATCH} worlds: {held.sum()} within rotation entries "
+              f"{d_rot[held].max(initial=0):.3e} and translation "
+              f"{d_tr[held].max(initial=0):.3e} m, {forked.sum()} forked "
+              f"(translation up to {d_tr.max():.3e} m); consensus counts "
+              f"{d_inl.max()} rows apart", flush=True)
+
+    # (b) ba-scaling at the JAX command's defaults, 1 and 2 ranks, one card
+    args = argparse.Namespace(landmarks=32768, window=3, iters=8, repeats=3,
+                              noise_px=0.5, seed=0)
+    out = str(tmp / "scaling.npz")
+    place = distributed.placement(SHARD_RANKS, dev)
+    t0 = time.perf_counter()
+    distributed.launch(scaling_rank, SHARD_RANKS, (args, out),
+                       init_method=f"file://{tmp}/store_scaling",
+                       device=dev, timeout=300)
+    spawn_s = time.perf_counter() - t0
+    z = np.load(out)
+    check(bool(z["on_card"]) and str(z["device"]).startswith("cuda")
+          and str(z["backend"]) == place.backend,
+          f"ba-scaling ranks on {z['device']} with {z['backend']}")
+    want = distributed.comm_audit(args.window, args.iters)[
+        "psums_per_solve"] + 2
+    check(tuple(z["counts"]) == (want, 0),
+          f"ba-scaling collectives {tuple(z['counts'])}, audit {want}")
+    dc = abs(float(z["cost2"]) / float(z["cost1"]) - 1.0)
+    dp = float(np.abs(z["poses2"] - z["poses1"]).max())
+    check(dc <= SHARD_COST_RTOL and dp <= SHARD_POSE_TOL
+          and np.allclose(z["poses"], z["poses2"], atol=SHARD_POSE_TOL),
+          f"sharded BA vs one rank: cost {dc} relative, poses {dp}")
+    print(f"ba-scaling (32768 landmarks, W = 3, 8 iterations, best of 3; "
+          f"{SHARD_RANKS} ranks: {distributed.describe(place)}): wall "
+          f"{z['wall'][0] * 1e3:.3f} ms at 1 rank, {z['wall'][1] * 1e3:.3f} "
+          f"at 2; CPU {z['cpu'][0] * 1e3:.3f} / {z['cpu'][1] * 1e3:.3f} ms; "
+          f"2 ranks vs 1: cost {dc:.2e} relative, poses {dp:.2e}; "
+          f"{want} all-reduces a solve = the audit; rms "
+          f"{float(z['rms']):.3f} px; spawn to exit {spawn_s:.1f} s "
+          f"[{card}]", flush=True)
+
+    # (c) vo --window --shard-ba 2 over phase 7's KITTI layout
+    nw = CLI_WINDOW_FRAMES
+    traj_s, rec_s = str(tmp / "traj_s.txt"), str(tmp / "rec_s")
+    text, _ = run_cli(torch, ["vo", "--kitti", ctx["root"], "--frames",
+                              str(nw), "--window", "--shard-ba",
+                              str(SHARD_RANKS), "--out", traj_s,
+                              "--record", rec_s], reset_counts, read_counts)
+    check(f"sharded over {SHARD_RANKS} rank(s)" in text
+          and place.backend in text, f"vo --shard-ba said {text!r}")
+    a, b = np.loadtxt(ctx["traj_w"]), np.loadtxt(traj_s)
+    check(b.shape == (nw, 12), f"vo --shard-ba wrote {b.shape}")
+    dpos = float(np.abs(a[:, 3::4] - b[:, 3::4]).max())
+    st_w, c_w, _ = telemetry.load_log(ctx["rec_w"])
+    st_s, c_s, _ = telemetry.load_log(rec_s)
+    ran = c_s["ba_rms_px"] > 0
+    check(ran[2:].all() and not ran[:2].any(), f"BA ran {ran}")
+    drms = float(np.abs(c_s["ba_rms_px"] - c_w["ba_rms_px"]).max())
+    check(dpos <= SHARD_POS_TOL and drms <= SHARD_RMS_TOL,
+          f"vo --shard-ba vs unsharded: positions {dpos} m, rms {drms} px")
+    ms_w = float(np.median(st_w["frame"])) * 1e3
+    ms_s = float(np.median(st_s["frame"])) * 1e3
+    print(f"cli vo --window --shard-ba {SHARD_RANKS}: {nw} frames, BA on "
+          f"frames 2-{nw - 1}, positions within {dpos:.3e} m and BA rms "
+          f"within {drms:.3e} px of the unsharded run; median {ms_s:.3f} "
+          f"ms/frame sharded against {ms_w:.3f} unsharded (rank 0's "
+          f"recording) [{card}]", flush=True)
+
+    # (d) report on (a)'s study and phase 7's recording, then explore
+    rep = tmp / "report"
+    text, rcounts = run_cli(torch, ["report", "--study", str(study),
+                                    "--record", ctx["rec"], "--out",
+                                    str(rep)], reset_counts, read_counts)
+    md = (rep / "REPORT.md").read_text()
+    figs = [ln[ln.index("(") + 1:ln.index(")")] for ln in md.splitlines()
+            if ln.startswith("![")]
+    check(len(figs) >= 16, f"report references {len(figs)} figures")
+    for f in figs:
+        check((rep / f).exists(), f"report figure {f} missing")
+        ET.parse(rep / f)
+    rows = [ln.split("|")[1:5] for ln in md.splitlines()
+            if ln.startswith("| ") and ln.split("|")[1].strip() in
+            {c for c, _ in report.DESC_CONFIGS}]
+    check([r[0].strip() for r in rows] == [c for c, _ in
+                                           report.DESC_CONFIGS],
+          f"timing table rows {rows}")
+    check(all(rcounts[k] > 0 for k in ("fast_grid", "brief_keypoints",
+                                       "match_reduce")),
+          f"report launches {rcounts}")
+    print(f"cli report: {len(figs)} figures (SVG, parsed), the study "
+          f"table and the timing table of {len(rows)} configurations; "
+          f"desc+match ms on the card: "
+          + ", ".join(f"{r[0].strip()} {r[2].strip()}" for r in rows)
+          + f"; launches {rcounts} [{card}]", flush=True)
+    ex = tmp / "explore"
+    text, xcounts = run_cli(torch, ["explore", "--family", "FAST",
+                                    "--frames", "2", "--out", str(ex)],
+                            reset_counts, read_counts)
+    index = (ex / "INDEX.md").read_text()
+    n_rows = sum(1 for ln in index.splitlines() if ln.startswith("| ")
+                 and ln.split("|")[1].strip().isdigit())
+    for ln in index.splitlines():
+        if ln.startswith("!["):
+            f = ln[ln.index("(") + 1:ln.index(")")]
+            check((ex / f).exists(), f"explore file {f} missing")
+    check(n_rows == 354 and xcounts["fast_margins"] > 0,
+          f"explore: {n_rows} rows, launches {xcounts}")
+    print(f"cli explore --family FAST --frames 2: {n_rows} combinations "
+          f"ranked, overlays and summary written; launches {xcounts}",
+          flush=True)
+
+    # the report's BRIEF_16 stereo match: the match kernel at 4 words
+    L1, R1 = make_sequence(1)
+    from front_end_tpu_torch import features
+    gcfg = grid.GridConfig()
+    left, right = (torch.as_tensor(a[0]).to(dev) for a in (L1, R1))
+    kl, kr = (grid.detect(img, gcfg.init_thresholds(dev), gcfg).keypoints
+              for img in (left, right))
+    fn = features.make_descriptor(report.DESC_CONFIGS[0][1])[0]
+    dl, dr = fn(left, kl.xy), fn(right, kr.xy)
+    margs = (dl.packed, dr.packed, kl.xy, kr.xy, kl.valid, kr.valid)
+    check(margs[0].shape[1] == 4, f"BRIEF_16 words {tuple(margs[0].shape)}")
+    kw = dict(mode="epi", p1=2.0)
+    got = match_reduce.match_reduce(*margs, **kw)
+    ref = match_reduce.plain(*margs, **kw)
+    torch.cuda.synchronize()
+    check(all(same(torch, g, r) for g, r in zip(got, ref)),
+          "match_reduce at 4 words != plain")
+    m4 = {"err": max_abs_err(torch, got, ref),
+          "ms": cuda_ms(torch, lambda: match_reduce.match_reduce(*margs,
+                                                                 **kw), 100),
+          "plain": cuda_ms(torch, lambda: match_reduce.plain(*margs, **kw),
+                           10)}
+    print(f"kernel match_reduce (report BRIEF_16 stereo, "
+          f"{margs[0].shape[0]} x {margs[1].shape[0]}, 4 words): exact; "
+          f"{m4['ms'] * 1e3:.1f} us vs plain {m4['plain'] * 1e3:.1f} us "
+          f"[{card}]", flush=True)
+    return {"report": rcounts, "explore": xcounts}, m4
 
 
 def main() -> int:
@@ -1948,10 +2272,20 @@ def main() -> int:
         mk["ms_tracker_16w"] = tr16["ms"]
         mk["plain_ms_tracker_16w"] = tr16["plain"]
 
-        # ---- phase 7: the command line on disk ----------------------
-        by_path["cli"] = cli_phase(torch, dev, card, lefts, rights, rig, cfg,
-                                   vo_poses, ms_frame, reset_counts,
-                                   read_counts)
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        try:
+            # ---- phase 7: the command line on disk ------------------
+            by_path["cli"], ctx = cli_phase(
+                torch, dev, card, lefts, rights, rig, cfg, vo_poses,
+                ms_frame, reset_counts, read_counts, tmp)
+            # ---- phase 8: studies and distribution ------------------
+            paths, m4 = studies_phase(torch, dev, card, tmp, ctx,
+                                      reset_counts, read_counts)
+            by_path.update(paths)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        mk["max_abs_err"] = max(mk["max_abs_err"], m4["err"])
+        mk["ms_stereo_4w"], mk["plain_ms_stereo_4w"] = m4["ms"], m4["plain"]
 
     line = []
     for k in kernels:
@@ -1968,6 +2302,11 @@ def main() -> int:
             check(line[-1]["launches"] > 0, f"{name} was never launched")
             check(line[-1]["launches_by_path"]["cli"] > 0,
                   f"{name} was never launched by the command line")
+    for path, names in (("report", ("fast_grid", "brief_keypoints",
+                                     "match_reduce")),
+                        ("explore", ("fast_margins",))):
+        for name in names:
+            check(by_path[path][name] > 0, f"{name} not launched by {path}")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

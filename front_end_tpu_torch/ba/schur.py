@@ -38,12 +38,17 @@ class BAResult(NamedTuple):
     rms_px: torch.Tensor       # final masked RMS reprojection error (px)
 
 
-def _normal_equations(poses, X, meas, vis_w, rig, huber_px):
+def _local(*ts):
+    """The sum over landmark blocks when one block holds every landmark."""
+    return ts
+
+
+def _normal_equations(poses, X, meas, vis_w, rig, huber_px, total=_local):
     """All H/b blocks at the current linearisation point.
 
     poses: (W, 4, 4); X: (L, 3); meas: (L, W, 4); vis_w: (L, W) weights.
     Returns (Hpp (W,6,6), Hpl (L,W,6,3), Hll (L,3,3), bp (W,6), bl (L,3),
-    cost)."""
+    cost); Hpp, bp and cost summed over the landmark blocks by `total`."""
     r, Jp, Jl = factors.residual_and_jacobians(
         poses[None, :], X[:, None, :], meas, rig)        # (L, W, 4[, ·])
     r2 = (r * r).sum(-1)
@@ -57,6 +62,7 @@ def _normal_equations(poses, X, meas, vis_w, rig, huber_px):
     Hpl = torch.einsum("lwri,lwrj->lwij", Jpw, Jl)        # (L, W, 6, 3)
     bp = -torch.einsum("lwri,lwr->wi", Jpw, r)            # (W, 6)
     bl = -torch.einsum("lwri,lwr->li", Jlw, r)            # (L, 3)
+    Hpp, bp, cost = total(Hpp, bp, cost)
     return Hpp, Hpl, Hll, bp, bl, cost
 
 
@@ -88,15 +94,18 @@ def _inv3x3(M):
     return inv / det[..., None, None]
 
 
-def _schur_reduce(Hpp, Hpl, Hll, bp, bl, lam):
-    """The reduced camera system (S_off, rhs) and the landmark inverse."""
+def _schur_reduce(Hpp, Hpl, Hll, bp, bl, lam, total=_local):
+    """The reduced camera system (S_off, rhs) and the landmark inverse.
+    `total` sums S_off and the landmark term of the rhs over the landmark
+    blocks; bp is already a sum."""
     eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
     Hll_d = Hll + lam * (eye3 * Hll + 1e-8 * eye3)        # LM-damped diag
     Hll_inv = _inv3x3(Hll_d)                              # (L, 3, 3)
     HplHinv = torch.einsum("lwij,ljk->lwik", Hpl, Hll_inv)  # (L, W, 6, 3)
-    S_off = torch.einsum("lwik,lvjk->wvij", HplHinv, Hpl)   # (W, W, 6, 6)
-    rhs = bp - torch.einsum("lwij,lj->wi", HplHinv, bl)     # (W, 6)
-    return S_off, rhs, Hll_inv
+    S_off, lm_term = total(
+        torch.einsum("lwik,lvjk->wvij", HplHinv, Hpl),      # (W, W, 6, 6)
+        torch.einsum("lwij,lj->wi", HplHinv, bl))           # (W, 6)
+    return S_off, bp - lm_term, Hll_inv
 
 
 def _assemble_and_solve(Hpp, S_off, rhs, lam):
@@ -128,27 +137,35 @@ def _apply(poses, X, dxi, dX):
 
 @f32_precision
 def ba_solve(poses0, X0, meas, vis, rig: StereoRig, *, iters: int = 12,
-             huber_px: float = 3.0, lam0: float = 1e-4) -> BAResult:
+             huber_px: float = 3.0, lam0: float = 1e-4,
+             total=_local) -> BAResult:
     """Run LM on a window.  poses0: (W, 4, 4) camera_from_world initial;
     X0: (L, 3); meas: (L, W, 4); vis: (L, W) bool.
 
     One linearisation per iteration: the normal-equation blocks of the
     last ACCEPTED state are carried, the tentative state's pass doubles as
-    its cost evaluation, and a rejected step keeps the carried blocks."""
+    its cost evaluation, and a rejected step keeps the carried blocks.
+
+    `total(*tensors)` sums tensors over the landmark blocks of a sharded
+    solve (`distributed.ba_solve_sharded`); X0, meas and vis are then this
+    block's, and the landmarks returned too.  One call before the loop,
+    two an iteration, two for the rms."""
     vis_w = vis.to(torch.float32)
     poses, X = poses0, X0
-    *ne, cost = _normal_equations(poses, X, meas, vis_w, rig, huber_px)
+    *ne, cost = _normal_equations(poses, X, meas, vis_w, rig, huber_px,
+                                  total)
     cost0 = cost
     lam = torch.as_tensor(lam0, dtype=torch.float32, device=X0.device)
 
     for _ in range(iters):
         Hpp, Hpl, Hll, bp, bl = ne
-        S_off, rhs, Hll_inv = _schur_reduce(Hpp, Hpl, Hll, bp, bl, lam)
+        S_off, rhs, Hll_inv = _schur_reduce(Hpp, Hpl, Hll, bp, bl, lam,
+                                            total)
         dxi = _assemble_and_solve(Hpp, S_off, rhs, lam)
         dX = _back_substitute(Hll_inv, bl, Hpl, dxi)
         new_poses, new_X = _apply(poses, X, dxi, dX)
         *new_ne, new_cost = _normal_equations(new_poses, new_X, meas, vis_w,
-                                              rig, huber_px)
+                                              rig, huber_px, total)
         accept = new_cost < cost
         poses = torch.where(accept, new_poses, poses)
         X = torch.where(accept, new_X, X)
@@ -157,8 +174,8 @@ def ba_solve(poses0, X0, meas, vis, rig: StereoRig, *, iters: int = 12,
         lam = torch.where(accept, lam * 0.3, lam * 5.0).clamp(1e-9, 1e8)
 
     r = factors.residual(poses[None, :], X[:, None, :], meas, rig)
-    r2 = (r * r).sum(-1) * vis_w
-    nobs = (vis_w.sum() * 4.0).clamp(min=1.0)
-    rms = torch.sqrt(r2.sum() / nobs)
+    (r2,) = total(((r * r).sum(-1) * vis_w).sum())
+    (n_vis,) = total(vis_w.sum())
+    rms = torch.sqrt(r2 / (n_vis * 4.0).clamp(min=1.0))
     return BAResult(poses=poses, landmarks=X, cost=cost, cost0=cost0,
                     rms_px=rms)

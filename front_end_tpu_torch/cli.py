@@ -4,16 +4,19 @@
 
   gen-table        export the detector / descriptor sweep tables
   detect-sweep     the single-image detection service over a family's IDs
+  extract-motion   the Monte-Carlo estimator study (operating curves)
+  ba-scaling       the landmark-sharded BA at 1, 2, 4 ... N ranks
   ransac-smoke     rigid RANSAC on a synthetic world of known motion
   vo               the VO pipeline (frame-to-frame, or `--window`: tracker
-                   + windowed BA) on a KITTI or EuRoC sequence read from
-                   disk, or on synthetic frames
+                   + windowed BA, `--shard-ba N`: over N ranks) on a KITTI
+                   or EuRoC sequence read from disk, or on synthetic frames
+  report           study, detection, descriptor and recorded-run figures
+                   (SVG) and REPORT.md
+  explore          a detector family's whole parameter grid over frames
 
 Every command that computes runs on the card unless `--device cpu` asks
-for the CPU.  The JAX package's `extract-motion`, `ba-scaling`, `report`,
-`explore` and `bench` commands and `vo --shard-ba` are not here yet:
-they need the studies and the landmark-sharded BA (`ROADMAP.md` Queue 1
-item 12).
+for the CPU.  The JAX package's `bench` (its benchmark script) has no
+counterpart yet.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
+import time
 
 import numpy as np
 
@@ -54,6 +59,164 @@ def cmd_detect_sweep(args):
         print(f"{r['detID']}: L={r['leftFeatures']['nPoints']} "
               f"R={r['rightFeatures']['nPoints']} "
               f"t={r['processingTime'][0]['seconds'] * 1000:.2f}ms")
+
+
+def cmd_extract_motion(args):
+    from front_end_tpu_torch.analysis import sweeps
+    print(json.dumps(sweeps.run_study(
+        args.out, methods=tuple(args.methods.split(",")),
+        speeds=tuple(args.speeds.split(",")),
+        curves=tuple(int(c) for c in args.curves.split(",")),
+        batch=args.batch, ideal_only=args.ideal, devices=args.devices,
+        device=args.device)))
+
+
+def _scaling_sizes(n_ranks: int) -> list[int]:
+    """The group sizes `ba-scaling` measures: 1, 2, 4 ... and `n_ranks`."""
+    return [s for s in (1, 2, 4, 8, 16, 32) if s < n_ranks] + [n_ranks]
+
+
+def _ba_scaling_problem(args, n_ranks: int):
+    """The JAX command's synthetic window: W poses of medium motion, L
+    landmarks seen from each, noisy measurements, perturbed poses; padded
+    to a multiple of every group size up to `n_ranks`, so each size splits
+    the same problem.  Built on the host from the seed, the same on every
+    rank."""
+    import math
+
+    import torch
+
+    from front_end_tpu_torch.ba import distributed
+    from front_end_tpu_torch.geometry import se3
+    from front_end_tpu_torch.geometry.camera import StereoRig
+    from front_end_tpu_torch.sim import synthetic as sim
+
+    gen = torch.Generator().manual_seed(args.seed)
+    W, L = args.window, args.landmarks
+    rig = StereoRig.create(fx=300.0, cx=160.0, cy=120.0, baseline=0.3,
+                           width=320, height=240)
+    cat = sim.motion_category("medium")
+    Ts = [torch.eye(4)]
+    for _ in range(W - 1):
+        Ts.append(sim.sample_motion(gen, cat)[1] @ Ts[-1])
+    T = torch.stack(Ts)
+    world = sim.sample_world(gen, rig, cat, L)
+    Xc = se3.transform_points(T, world.Xa)                    # (W, L, 3)
+    meas = rig.project4(Xc).transpose(0, 1)
+    vis = rig.in_view(Xc).transpose(0, 1) & world.valid[:, None]
+    meas = meas + args.noise_px * torch.randn(meas.shape, generator=gen)
+    dxi = 0.01 * torch.randn((W, 6), generator=gen)
+    dxi[0] = 0.0
+    T0 = se3.se3_exp(dxi) @ T
+    return (rig, T0, *distributed.pad_landmarks(
+        world.Xa, meas, vis, math.lcm(*_scaling_sizes(n_ranks))))
+
+
+def _ba_scaling_rank(rank, group, dev, args, virtual: bool, n_hosts: int):
+    """One rank of `ba-scaling`: for every size s, the first s ranks solve
+    the whole problem in s blocks over a group of their own; sizes
+    interleave across the repeats.  Rank 0 prints.  Returns ({size: this
+    rank's BAResult}, {size: wall s}, {size: CPU s summed over ranks})."""
+    import torch
+    import torch.distributed as dist
+
+    from front_end_tpu_torch.ba import distributed
+    from front_end_tpu_torch.eval import metrics
+
+    N = group.size()
+    rig, T0, Xp, measp, visp = (a.to(dev) if isinstance(a, torch.Tensor)
+                                else a
+                                for a in _ba_scaling_problem(args, N))
+    sizes = _scaling_sizes(N)
+    groups = {s: dist.new_group(list(range(s))) for s in sizes}
+
+    def solve(s):
+        blocks = (distributed.local_block(a, rank, s)
+                  for a in (Xp, measp, visp))
+        return distributed.ba_solve_sharded(groups[s], T0, *blocks, rig,
+                                            iters=args.iters)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    results = {s: solve(s) for s in sizes if rank < s}     # warm-up
+    sync()
+    wall = {s: float("inf") for s in sizes}
+    cpu = dict(wall)
+    for _rep in range(args.repeats):
+        for s in sizes:
+            dist.barrier(group)
+            dt = torch.zeros(2, dtype=torch.float64, device=dev)
+            if rank < s:
+                t0, c0 = time.perf_counter(), time.process_time()
+                solve(s)
+                sync()
+                dt[0] = time.perf_counter() - t0
+                dt[1] = time.process_time() - c0
+            w = dt[:1].clone()
+            dist.all_reduce(w, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(dt, group=group)        # CPU seconds summed
+            wall[s] = min(wall[s], float(w[0]))
+            cpu[s] = min(cpu[s], float(dt[1]))
+    if rank:
+        return results, wall, cpu
+    L = int(Xp.shape[0])
+    for s in sizes:
+        r = results[s]
+        print(f"n={s}: wall {wall[s]*1e3:.3f} ms  cpu {cpu[s]*1e3:.3f} ms  "
+              f"cost {float(r.cost):.1f} (from {float(r.cost0):.1f}) "
+              f"rms {float(r.rms_px):.2f}px")
+    # ranks sharing a device time-slice it: process CPU seconds measure the
+    # distribution's overhead there (per-rank time cpu(n) / n); separate
+    # cards solve the whole problem in their wall time
+    eff = metrics.scaling_efficiency(
+        {n: n * L / cpu[n] for n in sizes} if virtual
+        else {n: L / wall[n] for n in sizes})
+    print(json.dumps({
+        "n_hosts": n_hosts, "n_devices": N, "virtual_mesh": virtual,
+        "landmarks": L, "window": args.window,
+        "wall_ms": {str(n): t * 1e3 for n, t in wall.items()},
+        "cpu_ms": {str(n): t * 1e3 for n, t in cpu.items()},
+        "efficiency": {str(n): e for n, e in eff.items()}}), flush=True)
+    return results, wall, cpu
+
+
+def cmd_ba_scaling(args):
+    """The landmark-sharded Schur LM at 1, 2, 4 ... N ranks on one
+    synthetic window: wall and CPU ms per size and the scaling efficiency.
+    `--ranks N` ranks are spawned here, placed as `ba.distributed.placement`
+    says; with `--multihost` this process is one rank of a `torchrun`
+    launch."""
+    import torch
+
+    from front_end_tpu_torch.ba import distributed
+
+    if args.multihost:
+        import torch.distributed as dist
+
+        group = distributed.initialize()
+        try:
+            local = int(os.environ.get("LOCAL_RANK", 0))
+            dev = (torch.device("cuda", local) if args.device != "cpu"
+                   else torch.device("cpu"))
+            n_local = int(os.environ.get("LOCAL_WORLD_SIZE", group.size()))
+            virtual = (dev.type == "cpu"
+                       or torch.cuda.device_count() < n_local)
+            _ba_scaling_rank(group.rank(), group, dev, args, virtual,
+                             group.size() // n_local)
+        finally:
+            dist.destroy_process_group()
+        return
+    n = args.ranks or (torch.cuda.device_count() if args.device != "cpu"
+                       else 1)
+    p = distributed.placement(n, args.device)
+    print(f"ba-scaling over {n} rank(s): {distributed.describe(p)}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.launch(_ba_scaling_rank, n, (args, p.virtual, 1),
+                           init_method=f"file://{tmp}/store",
+                           device=args.device)
 
 
 def cmd_ransac_smoke(args):
@@ -100,6 +263,27 @@ def _open_sequence(args, dev):
 
 
 def cmd_vo(args):
+    """`--window --shard-ba N` starts N ranks, each running the whole step
+    on the same frames with the same RANSAC seed, the windowed BA sharded
+    over them; rank 0 alone prints and writes."""
+    if not (args.window and args.shard_ba):
+        return _run_vo(args)
+    from front_end_tpu_torch.ba import distributed
+    n = args.shard_ba
+    print(f"windowed BA sharded over {n} rank(s) (landmark axis): "
+          f"{distributed.describe(distributed.placement(n, args.device))}",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.launch(_vo_rank, n, (args,),
+                           init_method=f"file://{tmp}/store",
+                           device=args.device)
+
+
+def _vo_rank(rank, group, dev, args):
+    _run_vo(args, group=group, dev=dev)
+
+
+def _run_vo(args, group=None, dev=None):
     import torch
 
     from front_end_tpu_torch.eval import metrics
@@ -109,7 +293,9 @@ def cmd_vo(args):
     from front_end_tpu_torch.utils import checkpoint
     from front_end_tpu_torch.utils.precision import resolve_device
 
-    dev = resolve_device(args.device)
+    lead = group is None or group.rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    dev = dev or resolve_device(args.device)
     rig, frame_iter, gt = _open_sequence(args, dev)
     # the JAX package's benchmark configuration
     cfg = vo.VOConfig(
@@ -119,9 +305,11 @@ def cmd_vo(args):
         desc_bytes=32, ransac_hyps=256, ransac_threshold=0.5,
         max_disparity=192.0)
     if args.window:
+        # the compacted BA problem divides among the ranks
+        n = 1 if group is None else group.size()
         wcfg = window_vo.WindowVOConfig.create(
             cfg, window=args.window_size, ba_every=args.ba_every,
-            ba_max_landmarks=1024)
+            ba_max_landmarks=-(-1024 // n) * n, ba_group=group)
         if args.max_age is not None:
             wcfg = wcfg.replace(tracker=dataclasses.replace(
                 wcfg.tracker, max_age=args.max_age))
@@ -151,14 +339,14 @@ def cmd_vo(args):
         n_done = int(meta["n_processed"])
         prior = np.load(args.resume + ".traj.npy")
         state = checkpoint.load_state(args.resume, state)
-        print(f"resuming after {n_done} frames from {args.resume}")
+        say(f"resuming after {n_done} frames from {args.resume}")
 
     def skip_done(it):
         for i, pair in enumerate(it):
             if i >= n_done:
                 yield pair
 
-    tlog = telemetry.TelemetryLog() if args.record else None
+    tlog = telemetry.TelemetryLog() if args.record and lead else None
     poses = []
     for i, (l, r) in enumerate(DeviceFeed(skip_done(frame_iter),
                                           device=dev)):
@@ -177,17 +365,19 @@ def cmd_vo(args):
                 tlog.count("n_tracks", frame.n_tracks)
                 tlog.count("n_inliers", frame.n_inliers)
         poses.append(frame.pose)
-        if args.debug_images and i % args.debug_every == 0:
+        if args.debug_images and lead and i % args.debug_every == 0:
             _dump_debug(args.debug_images, i, l, r, feats, frame)
         if args.verbose and i % 25 == 0:
             extra = (f" tracked={int(out.n_tracked)} "
                      f"ba_rms={float(out.ba_rms_px):.2f}px"
                      if args.window else "")
-            print(f"frame {i}: stereo={int(frame.n_stereo)} "
-                  f"inliers={int(frame.n_inliers)}{extra}")
+            say(f"frame {i}: stereo={int(frame.n_stereo)} "
+                f"inliers={int(frame.n_inliers)}{extra}")
     new = (torch.stack(poses).cpu().numpy().astype(np.float64) if poses
            else np.zeros((0, 4, 4)))
     poses = np.concatenate([prior, new])
+    if not lead:
+        return
     print(f"processed {len(poses)} frames"
           + (" (windowed BA mode)" if args.window else ""))
     if tlog is not None:
@@ -230,6 +420,32 @@ def _dump_debug(out_dir, i, l, r, feats, frame):
                                frame.track_valid))
 
 
+def cmd_report(args):
+    """Study, detection, descriptor and recorded-run figures and
+    REPORT.md."""
+    from front_end_tpu_torch.analysis import report
+
+    frames = None
+    if args.kitti:
+        from front_end_tpu_torch.io.kitti import KittiSequence
+        seq = KittiSequence(args.kitti, args.seq, max_frames=args.frames)
+        pairs = list(seq.frames())
+        frames = (np.stack([p[0] for p in pairs]),
+                  np.stack([p[1] for p in pairs]))
+    path = report.generate_report(
+        args.study, args.out, frames=frames,
+        with_timings=not args.no_timings, bench_json=args.bench_json,
+        records=args.record, device=args.device)
+    print(f"report -> {path}")
+
+
+def cmd_explore(args):
+    from front_end_tpu_torch.analysis import explore
+    explore.explore_features(family=args.family, out=args.out,
+                             image=args.image, n_frames=args.frames,
+                             top=args.top, device=args.device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="front_end_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -249,6 +465,33 @@ def main(argv=None):
     d.add_argument("--image", default=None)
     device_flag(d)
     d.set_defaults(fn=cmd_detect_sweep)
+
+    e = sub.add_parser("extract-motion")
+    e.add_argument("--out", default="fe_torch_study")
+    e.add_argument("--methods", default="PCL,Nister,BA")
+    e.add_argument("--speeds", default="slow,medium,fast")
+    e.add_argument("--curves", default="100,250,500")
+    e.add_argument("--batch", type=int, default=64)
+    e.add_argument("--ideal", action="store_true")
+    e.add_argument("--devices", type=int, default=None,
+                   help="split each condition's world batch over N cards")
+    device_flag(e)
+    e.set_defaults(fn=cmd_extract_motion)
+
+    bs = sub.add_parser("ba-scaling")
+    bs.add_argument("--landmarks", type=int, default=32768)
+    bs.add_argument("--window", type=int, default=3)
+    bs.add_argument("--iters", type=int, default=8)
+    bs.add_argument("--repeats", type=int, default=3)
+    bs.add_argument("--noise-px", type=float, default=0.5)
+    bs.add_argument("--seed", type=int, default=0)
+    bs.add_argument("--ranks", type=int, default=None,
+                    help="ranks to spawn (default: one per card; on the "
+                         "CPU, 1); ranks beyond the cards share them")
+    bs.add_argument("--multihost", action="store_true",
+                    help="this process is one rank of a torchrun launch")
+    device_flag(bs)
+    bs.set_defaults(fn=cmd_ba_scaling)
 
     r = sub.add_parser("ransac-smoke")
     r.add_argument("--seed", type=int, default=0)
@@ -277,6 +520,9 @@ def main(argv=None):
     v.add_argument("--max-age", type=int, default=None,
                    help="landmark track-retention horizon in frames "
                         "(default 3)")
+    v.add_argument("--shard-ba", type=int, default=0, metavar="N",
+                   help="with --window: shard the windowed BA's landmark "
+                        "blocks over N ranks (0 = one process)")
     v.add_argument("--debug-images", default=None, metavar="DIR",
                    help="write stereo-match and anaglyph track overlays "
                         "(PNG) every --debug-every frames to DIR")
@@ -292,6 +538,29 @@ def main(argv=None):
                         "from the next unprocessed frame")
     device_flag(v)
     v.set_defaults(fn=cmd_vo)
+
+    rp = sub.add_parser("report")
+    rp.add_argument("--study", default=None,
+                    help="extract-motion output directory")
+    rp.add_argument("--out", default="fe_torch_report")
+    rp.add_argument("--kitti", default=None)
+    rp.add_argument("--seq", default="00")
+    rp.add_argument("--frames", type=int, default=12)
+    rp.add_argument("--no-timings", action="store_true")
+    rp.add_argument("--bench-json", default=None)
+    rp.add_argument("--record", action="append", default=[], metavar="PATH",
+                    help="a `vo --record` recording to render (repeatable)")
+    device_flag(rp)
+    rp.set_defaults(fn=cmd_report)
+
+    x = sub.add_parser("explore")
+    x.add_argument("--family", default="FAST")
+    x.add_argument("--out", default="fe_torch_explore")
+    x.add_argument("--image", default=None)
+    x.add_argument("--frames", type=int, default=4)
+    x.add_argument("--top", type=int, default=12)
+    device_flag(x)
+    x.set_defaults(fn=cmd_explore)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -99,21 +99,30 @@ def from_jax(rig=None, cfg=None, state=None, *, device="cuda", seed=0):
     return out_rig, out_cfg, out_state
 
 
-def window_from_jax(cfg=None, state=None, *, device="cuda"):
+def window_from_jax(cfg=None, state=None, *, device="cuda", group=None):
     """-> (TrackerConfig | WindowVOConfig | None, WindowState | None).
 
     cfg: the fields of a JAX `TrackerConfig`, or of a `WindowVOConfig`
-    (recognised by its `vo` and `tracker` entries; `ba_mesh` must be None,
-    the sharded BA is not ported).  state: a `WindowState` in the layout
-    of the module docstring, its descriptors of the tracker's norm (binary
-    without a cfg)."""
+    (recognised by its `vo` and `tracker` entries).  A `ba_mesh` there
+    becomes `ba_group=group`, the caller's process group, whose size must
+    equal the mesh's `landmark` axis.  state: a `WindowState` in the
+    layout of the module docstring, its descriptors of the tracker's norm
+    (binary without a cfg)."""
     out_cfg = out_state = None
     if cfg is not None:
         c = dict(cfg)
         if "tracker" in c:
-            if c.pop("ba_mesh", None) is not None:
-                raise NotImplementedError(
-                    "ba_mesh: the landmark-sharded BA is not ported")
+            mesh = c.pop("ba_mesh", None)
+            if mesh is not None:
+                if group is None:
+                    raise ValueError("ba_mesh: pass the process group the "
+                                     "sharded BA runs over (group=)")
+                n_lm = mesh.shape["landmark"]
+                if n_lm != group.size():
+                    raise ValueError(
+                        f"ba_mesh's landmark axis has {n_lm} devices, the "
+                        f"group {group.size()} ranks")
+                c["ba_group"] = group
             out_cfg = WindowVOConfig(
                 vo=_vo_config(c.pop("vo")),
                 tracker=TrackerConfig(**c.pop("tracker")), **c)

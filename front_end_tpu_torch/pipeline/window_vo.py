@@ -40,8 +40,14 @@ class WindowVOConfig:
     ba_iters: int = 6
     huber_px: float = 3.0
     min_obs: int = 2
-    # size of the compacted problem handed to the BA
+    # size of the compacted problem handed to the BA (divisible by the
+    # group's size when ba_group is set)
     ba_max_landmarks: int = 1024
+    # a torch.distributed process group (the JAX package's `ba_mesh`): the
+    # per-window BA then runs landmark-sharded over its ranks
+    # (`ba/distributed.py`), each rank running the rest of the step on the
+    # same frames with the same RANSAC seed.  None: single-device BA.
+    ba_group: object = None
 
     @staticmethod
     def create(vo_cfg: vo_mod.VOConfig, *, window: int = 3,
@@ -102,7 +108,8 @@ def window_vo_step(state: WindowVOState, left, right, rig: StereoRig,
     if do_ba:
         win, res = tracker_mod.run_window_ba(
             win, rig, iters=cfg.ba_iters, huber_px=cfg.huber_px,
-            min_obs=cfg.min_obs, max_landmarks=cfg.ba_max_landmarks)
+            min_obs=cfg.min_obs, max_landmarks=cfg.ba_max_landmarks,
+            group=cfg.ba_group)
         pose_cw_ref, ba_cost, ba_rms = res.poses[-1], res.cost, res.rms_px
     else:
         pose_cw_ref = pose_cw

@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from front_end_tpu_torch.ba import factors, schur
+from front_end_tpu_torch.ba import distributed, factors, schur
 from front_end_tpu_torch.geometry import se3
 from front_end_tpu_torch.geometry.camera import StereoRig
 from front_end_tpu_torch.ops import match as match_mod
@@ -243,7 +243,7 @@ def tracked_pairs(state_prev: WindowState, upd: TrackUpdate, X_cam_cur):
 def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
                   huber_px: float = 3.0, min_obs: int = 2,
                   outlier_gate_px: float | None = 8.0,
-                  max_landmarks: int | None = 1024):
+                  max_landmarks: int | None = 1024, group=None):
     """Windowed BA over the store: optimise the W window poses and the
     landmarks observed at least `min_obs` times in the window.  Returns
     (updated state, BAResult).
@@ -256,7 +256,14 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
     `max_landmarks`: the solver runs on a COMPACTED problem — the top-K
     usable landmarks by in-window observation count (ties: longest track,
     then lowest slot).  None, or a K not below the capacity, solves the
-    full grid."""
+    full grid.
+
+    `group`: a `torch.distributed` process group (the JAX package's
+    `mesh`).  The compacted block is then split by rank and solved
+    landmark-sharded (`ba/distributed.py`); one `all_gather` gives every
+    rank the refined landmarks back before the store write, where the JAX
+    package gathers through its `out_specs`.  K must be below the capacity
+    and divisible by the group's size."""
     store = state.store
     obs_count = store.vis.sum(1)
     use = store.valid & (obs_count >= min_obs)
@@ -267,6 +274,11 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
         vis = vis & ((r * r).sum(-1) < outlier_gate_px ** 2)
 
     M = store.Xw.shape[0]
+    if group is not None and (max_landmarks is None or max_landmarks >= M):
+        raise ValueError(
+            "sharded window BA runs on the compacted problem: set "
+            f"max_landmarks < store capacity {M} (and divisible by the "
+            "group's size)")
     if max_landmarks is not None and max_landmarks < M:
         # integer-valued score: observation count, then track length
         score = torch.where(
@@ -274,12 +286,24 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
             + store.track_len.clamp(max=9999).to(torch.float32) + 1.0,
             torch.zeros((), device=use.device))
         sel = topk_select(score, max_landmarks)
-        res = schur.ba_solve(
-            state.poses, compact_rows(sel, store.Xw),
-            compact_rows(sel, store.meas), compact_rows(sel, vis), rig,
-            iters=iters, huber_px=huber_px)
-        Xw = put_rows(store.Xw, torch.where(sel.valid, sel.idx, M),
-                      res.landmarks)
+        Xk, meask, visk = (compact_rows(sel, a)
+                           for a in (store.Xw, store.meas, vis))
+        if group is None:
+            res = schur.ba_solve(state.poses, Xk, meask, visk, rig,
+                                 iters=iters, huber_px=huber_px)
+            Xk = res.landmarks
+        else:
+            n, r = group.size(), group.rank()
+            if max_landmarks % n:
+                raise ValueError(f"max_landmarks={max_landmarks} not "
+                                 f"divisible by the group's size {n}")
+            res = distributed.ba_solve_sharded(
+                group, state.poses,
+                *(distributed.local_block(a, r, n) for a in (Xk, meask,
+                                                             visk)),
+                rig, iters=iters, huber_px=huber_px)
+            Xk = distributed.all_gather(res.landmarks, group)
+        Xw = put_rows(store.Xw, torch.where(sel.valid, sel.idx, M), Xk)
         return state._replace(store=store._replace(Xw=Xw),
                               poses=res.poses), res
 

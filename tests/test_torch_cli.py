@@ -6,6 +6,7 @@ temporary directory.
 in memory exactly (the files hold the frames' integer values); a resume
 after frame 4 gives the uninterrupted run's trajectory exactly.
 """
+import json
 import os
 
 import numpy as np
@@ -186,3 +187,132 @@ def test_entry_points_default_to_the_card(kitti_root):
     root, _, _ = kitti_root
     with pytest.raises(RuntimeError, match="CUDA was requested"):
         cli.main(["vo", "--kitti", root, "--frames", "1"])
+
+
+def test_extract_motion_writes_the_study(tmp_path, capsys):
+    out = str(tmp_path / "study")
+    argv = ["extract-motion", "--out", out, "--methods", "PCL,Nister,BA",
+            "--speeds", "medium", "--curves", "100", "--batch", "4",
+            "--ideal", "--device", "cpu"]
+    cli.main(argv)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == {
+        "ran": 3, "skipped": 0}
+    assert sorted(os.listdir(out)) == [
+        f"{m}_medium_00100_n0_o0.npz" for m in ("BA", "Nister", "PCL")]
+    with np.load(os.path.join(out, "PCL_medium_00100_n0_o0.npz")) as z:
+        assert sorted(z.files) == ["n_inliers", "rot_err_deg",
+                                   "trans_err_m"]
+        assert z["rot_err_deg"].shape == (4,)
+        assert (z["trans_err_m"] < 1e-4).all()
+    cli.main(argv)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == {
+        "ran": 0, "skipped": 3}
+
+
+@pytest.fixture
+def spawn_timeout(monkeypatch):
+    """The CLI's rank spawns, each given a timeout of its own."""
+    import functools
+
+    from front_end_tpu_torch.ba import distributed
+    monkeypatch.setattr(distributed, "launch", functools.partial(
+        distributed.launch, timeout=240.0))
+
+
+def test_ba_scaling_reports_each_size(capfd, spawn_timeout):
+    """Rank 0 prints a line per size and the JAX command's JSON keys (from
+    its own process: read at the file descriptor)."""
+    cli.main(["ba-scaling", "--landmarks", "512", "--iters", "4",
+              "--repeats", "1", "--ranks", "2", "--device", "cpu"])
+    out = capfd.readouterr().out.splitlines()
+    assert out[0].startswith("ba-scaling over 2 rank(s): backend gloo")
+    assert [ln.split(":")[0] for ln in out if ln.startswith("n=")] == [
+        "n=1", "n=2"]
+    rep = json.loads(out[-1])
+    assert rep["n_devices"] == 2 and rep["virtual_mesh"] is True
+    assert rep["landmarks"] == 512 and rep["window"] == 3
+    for k in ("wall_ms", "cpu_ms", "efficiency"):
+        assert rep[k].keys() == {"1", "2"} and all(
+            v > 0 for v in rep[k].values())
+    assert rep["efficiency"]["1"] == 1.0
+
+
+@pytest.mark.parametrize("ranks,landmarks", [(2, 33), (6, 30), (7, 21)])
+def test_ba_scaling_splits_one_problem_at_every_size(ranks, landmarks):
+    """The landmarks are padded so that every group size measured splits
+    all of them: no size solves a smaller problem."""
+    import argparse
+
+    from front_end_tpu_torch.ba import distributed
+    args = argparse.Namespace(landmarks=landmarks, window=3, noise_px=0.5,
+                              seed=0)
+    _, _, *problem = cli._ba_scaling_problem(args, ranks)
+    for s in cli._scaling_sizes(ranks):
+        for a in problem:
+            assert torch.equal(torch.cat([distributed.local_block(a, r, s)
+                                          for r in range(s)]), a)
+    with pytest.raises(ValueError, match="equal blocks"):
+        distributed.local_block(torch.zeros(7, 3), 0, 2)
+
+
+def test_ba_scaling_multihost_joins_torchruns_rendezvous(tmp_path):
+    """`--multihost`: the process is one rank of a `torchrun` launch and
+    reads the rendezvous from its environment (here a launch of one rank
+    on this host, in a process of its own)."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port),
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))))
+    out = subprocess.run(
+        [sys.executable, "-m", "front_end_tpu_torch.cli", "ba-scaling",
+         "--multihost", "--landmarks", "256", "--iters", "2", "--repeats",
+         "1", "--device", "cpu"], env=env, cwd=tmp_path, capture_output=True,
+        text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rep["n_hosts"] == 1 and rep["n_devices"] == 1
+    assert rep["virtual_mesh"] is True and rep["wall_ms"].keys() == {"1"}
+
+
+def test_vo_window_shard_ba_follows_the_unsharded_run(kitti_root, tmp_path,
+                                                      capsys, spawn_timeout):
+    """`--shard-ba 2`: two ranks step the frames, the windowed BA sharded
+    over them; rank 0 writes the trajectory and the recording.  Positions
+    within 2e-3 m of the unsharded run (the bound of the JAX package's
+    sharded windowed test)."""
+    root, _, _ = kitti_root
+    one, two = str(tmp_path / "one.txt"), str(tmp_path / "two.txt")
+    rec = str(tmp_path / "rec")
+    common = ["vo", "--kitti", root, "--frames", "5", "--device", "cpu",
+              "--window"]
+    cli.main(common + ["--out", one])
+    cli.main(common + ["--shard-ba", "2", "--out", two, "--record", rec])
+    assert "sharded over 2 rank(s)" in capsys.readouterr().out
+    a, b = np.loadtxt(one), np.loadtxt(two)
+    assert b.shape == (5, 12)
+    np.testing.assert_allclose(b[:, 3::4], a[:, 3::4], atol=2e-3)
+    _, counters, meta = telemetry.load_log(rec)
+    assert meta["window"] is True and len(counters["ba_rms_px"]) == 5
+    assert not os.path.exists(rec + ".1.npz")
+
+
+def test_explore_cli_writes_the_index(kitti_root, tmp_path):
+    root, _, _ = kitti_root
+    image = os.path.join(root, "sequences", "00", "image_0", "000000.png")
+    out = tmp_path / "explore"
+    cli.main(["explore", "--family", "FAST", "--image", image, "--top", "2",
+              "--out", str(out), "--device", "cpu"])
+    rows = [ln for ln in (out / "INDEX.md").read_text().splitlines()
+            if ln.startswith("| ") and ln.split("|")[1].strip().isdigit()]
+    assert len(rows) == 354
+    assert (out / "summary_FAST.svg").exists()
+    assert len([f for f in os.listdir(out) if f.endswith(".png")]) == 2
+

@@ -413,7 +413,9 @@ def test_interop_carries_an_essential_config_and_window_config():
     wcfg, _ = interop.window_from_jax(cfg=dataclasses.asdict(wj))
     assert wcfg.vo.motion == "essential" and wcfg.vo == cfg
     ref = dataclasses.asdict(wj)
-    assert ref.pop("ba_mesh") is None
+    # the port's process group stands where JAX's mesh does: both unset
+    ref["ba_group"] = ref.pop("ba_mesh")
+    assert ref["ba_group"] is None
     assert dataclasses.asdict(wcfg) == ref
 
 

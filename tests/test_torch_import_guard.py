@@ -39,14 +39,15 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 65, out.stdout
+    assert int(count) >= 71, out.stdout
     assert bad == "[]", bad
 
 
-@pytest.mark.parametrize("script", ["profile_torch_vo"])
+@pytest.mark.parametrize("script", ["profile_torch_vo",
+                                    "tests._torch_dist_worker"])
 def test_port_scripts_import_no_jax(script):
-    """The measuring script beside `chip_smoke.py` runs where JAX is not
-    installed."""
+    """The measuring script beside `chip_smoke.py`, and the module the
+    multi-process tests' ranks import, load no JAX."""
     code = (f"import sys, {script}\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'front_end_tpu')))")
@@ -72,18 +73,22 @@ def test_every_module_of_the_port_is_walked():
                 "cli", "io.feed", "io.kitti", "io.euroc", "io.rectify",
                 "io.native_feed", "native", "pipeline.telemetry",
                 "utils.checkpoint", "utils.png", "eval.metrics", "viz.draw",
-                "sim.synthetic"):
+                "sim.synthetic", "ba.distributed", "analysis.sweeps",
+                "analysis.report", "analysis.explore", "viz.svg"):
         assert f"front_end_tpu_torch.{mod}" in names, mod
 
 
 def test_cli_help_loads_no_jax_and_no_bench():
     """`python -m front_end_tpu_torch.cli --help` (and each command's
     help) loads no `jax`, `flax`, `front_end_tpu` or root `bench`
-    module, and lists only the commands the port has."""
+    module, and lists the commands the port has: all of the JAX
+    command's but `bench`, `vo --shard-ba` among them."""
     code = (
         "import runpy, sys\n"
         "for argv in (['--help'], ['vo', '--help'], "
-        "['detect-sweep', '--help']):\n"
+        "['detect-sweep', '--help'], ['extract-motion', '--help'], "
+        "['ba-scaling', '--help'], ['report', '--help'], "
+        "['explore', '--help']):\n"
         "    sys.argv = ['front_end_tpu_torch.cli', *argv]\n"
         "    try:\n"
         "        runpy.run_module('front_end_tpu_torch.cli', "
@@ -96,8 +101,10 @@ def test_cli_help_loads_no_jax_and_no_bench():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
-    assert "{gen-table,detect-sweep,ransac-smoke,vo}" in out.stdout
-    assert "--shard-ba" not in out.stdout and "--device" in out.stdout
+    assert ("{gen-table,detect-sweep,extract-motion,ba-scaling,"
+            "ransac-smoke,vo,report,explore}") in out.stdout
+    assert "--shard-ba" in out.stdout and "--device" in out.stdout
+    assert "--multihost" in out.stdout and "--devices" in out.stdout
 
 
 def _last_json(stdout):

@@ -62,16 +62,36 @@ def jax_run():
     return rig, cfg, lefts, rights, states, outs
 
 
-def test_config_crosses_from_jax(jax_run):
+def test_config_crosses_from_jax(jax_run, tmp_path):
+    """The config crosses field for field; a `ba_mesh` becomes the
+    caller's process group (`ba_group`), checked against the mesh's
+    landmark axis."""
+    import torch.distributed as dist
+
+    from front_end_tpu.ba import distributed as jdist
     _, jcfg, *_ = jax_run
     cfg = _port_cfg(jcfg)
     assert cfg == twvo.WindowVOConfig.create(cfg.vo, window=3, ba_every=1)
     assert cfg.tracker.capacity == 2 * cfg.vo.grid.capacity == 1152
     assert cfg.tracker.desc_bits == 128 and cfg.ba_max_landmarks == 1024
-    assert not hasattr(cfg, "ba_mesh")
-    with pytest.raises(NotImplementedError):
-        interop.window_from_jax(dict(dataclasses.asdict(jcfg),
-                                     ba_mesh=object()))
+    assert not hasattr(cfg, "ba_mesh") and cfg.ba_group is None
+    fields = dataclasses.asdict(jcfg)
+    with pytest.raises(ValueError, match="process group"):
+        interop.window_from_jax(dict(fields, ba_mesh=jdist.make_mesh(1)))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        with pytest.raises(ValueError, match="landmark axis has 8"):
+            interop.window_from_jax(dict(fields, ba_mesh=jdist.make_mesh(8)),
+                                    group=group)
+        got = interop.window_from_jax(dict(fields,
+                                           ba_mesh=jdist.make_mesh(1)),
+                                      group=group)[0]
+        assert got.ba_group is group
+        assert dataclasses.replace(got, ba_group=None) == cfg
+    finally:
+        dist.destroy_process_group()
 
 
 def test_window_vo_matches_jax_frame_by_frame(jax_run):
