@@ -138,9 +138,20 @@ Phases, each of which exits non-zero on failure:
      read after each (`report`: grid, keypoint BRIEF and match kernels;
      `explore`: the margin kernel), and the match kernel at the report's
      4 words against its twin;
-  9. a JSON line describing every kernel (`launches_by_path` with `cli`,
-     `report` and `explore` entries), the card line, and as the last line
-     {"ok": true, "device": {...}}.
+  9. the benchmark: `python -m front_end_tpu_torch.cli bench` at its
+     defaults (in process, `cli.main(["bench"])`, launch counters reset
+     before and read after): its last line has the JAX benchmark's keys
+     and `feed_source`, `vs_baseline` = round(value / 200, 3), the card
+     line as its device, both rendered-world ATEs under `ATE_SHARE` of
+     the corridor's path, `motion_ok_last` true, the grid, keypoint BRIEF
+     and match kernels launched exactly as often as its frames and stage
+     calls give (`bench_launches`); then `bench_window` over its whole
+     grid at `BENCH_WINDOW_PASSES` pass (its default is 4, cut for time):
+     both tables, every fps above 0, every ATE under `ATE_SHARE` of the
+     path, launches as `bench_window_launches` gives;
+  10. a JSON line describing every kernel (`launches_by_path` with `cli`,
+     `report`, `explore`, `bench` and `bench_window` entries), the card
+     line, and as the last line {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -239,6 +250,24 @@ SHARD_COST_RTOL, SHARD_POSE_TOL = 1e-3, 1e-4
 # (`tests/test_sharded_window.py`'s bounds)
 SHARD_POS_TOL, SHARD_RMS_TOL = 2e-3, 5e-2
 SHARD_RANKS = 2
+# phase 9, the benchmark: the keys of the JAX benchmark's line (`bench.py`)
+# and the port's `feed_source`
+BENCH_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "detail",
+    *(f"detail.{k}" for k in (
+        "resolution", "keypoint_capacity", "n_frames", "ms_per_frame",
+        "device", "n_inliers_last", "motion_ok_last", "fps_feed_inclusive",
+        "feed_source", "h2d_link_mb_per_s", "h2d_pipelined_mb_per_s",
+        "stage_ms", "roofline", "fps_subpix_on", "fps_brief16",
+        "fps_device_scan", "fps_windowed", "windowed_ba_ran_last",
+        "windowed_n_tracked_last", "ate_rendered_world_m",
+        "ate_rendered_world_windowed_m")),
+    *(f"detail.stage_ms.{k}" for k in (
+        "harness_floor", "detect_pair", "describe_match_triangulate",
+        "extract_total", "motion_ransac_lm", "tracker_ba_overhead",
+        "note"))}
+ATE_SHARE = 0.03          # of the rendered corridor's path, both packages'
+BENCH_WINDOW_PASSES = 1   # the window sweep's passes (its default is 4)
 
 
 def fail(msg: str) -> None:
@@ -1070,6 +1099,136 @@ def studies_phase(torch, dev, card, tmp: Path, ctx: dict, reset_counts,
           f"{m4['ms'] * 1e3:.1f} us vs plain {m4['plain'] * 1e3:.1f} us "
           f"[{card}]", flush=True)
     return {"report": rcounts, "explore": xcounts}, m4
+
+
+def key_paths(d: dict, prefix: str = "") -> set:
+    keys = set()
+    for k, v in d.items():
+        keys.add(prefix + k)
+        if isinstance(v, dict):
+            keys |= key_paths(v, prefix + k + ".")
+    return keys
+
+
+def bench_launches(F: int, P: int, C: int, R: int) -> dict:
+    """Kernel launches of `cli bench` at F frames, P passes, C stage calls
+    and R rendered frames: 1 grid and 1 keypoint BRIEF launch and 2 match
+    launches per VO frame, one more match per windowed frame; the stage
+    timings add one call each for warming and `feats0`."""
+    vo_frames = ((2 + F * P) + (F + F * P) + 2 * (2 + F * P)  # headline,
+                 + 4 * F + R)           # run_sequence, brief16, subpix; feed
+    win_frames = R + (2 + F * P)
+    frames = vo_frames + win_frames
+    detect, extract, motion = C + 1, C + 2, C + 1
+    return {"fast_grid": frames + detect + extract,
+            "brief_keypoints": frames + extract,
+            "match_reduce": 2 * frames + win_frames + extract + motion}
+
+
+def bench_window_launches(points: int, F: int, P: int, R: int) -> dict:
+    """Kernel launches of `bench_window`: per point 3 warm-up frames and P
+    passes of F windowed KITTI frames and R windowed rendered frames, and R
+    plain rendered frames once."""
+    win_frames = points * (3 + F * P + R)
+    return {"fast_grid": win_frames + R, "brief_keypoints": win_frames + R,
+            "match_reduce": 3 * win_frames + 2 * R}
+
+
+def bench_phase(torch, card, reset_counts, read_counts) -> dict:
+    """Phase 9: `cli bench` at its defaults and `bench_window` over its
+    whole grid at `BENCH_WINDOW_PASSES` passes, launch counters reset just
+    before and read just after each.  Returns the launches of both."""
+    import contextlib
+    import io
+
+    from front_end_tpu_torch import bench_window
+    from front_end_tpu_torch.sim import render
+
+    gt = render.corridor_trajectory(40)
+    path = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum())
+    t0 = time.perf_counter()
+    text, counts = run_cli(torch, ["bench"], reset_counts, read_counts)
+    bench_s = time.perf_counter() - t0
+    res = json.loads(text.strip().splitlines()[-1])
+    d = res["detail"]
+    check(key_paths(res) == BENCH_KEYS, "bench line keys differ: "
+          f"{sorted(key_paths(res) ^ BENCH_KEYS)}")
+    check(res["value"] > 0
+          and res["vs_baseline"] == round(res["value"] / 200, 3),
+          f"bench value {res['value']}, vs_baseline {res['vs_baseline']}")
+    check(d["device"] == card, f"bench device {d['device']!r}, card {card!r}")
+    check(d["resolution"] == "376x1241" and d["n_frames"] == 200,
+          f"bench depth {d['resolution']}, {d['n_frames']} frames")
+    check(d["motion_ok_last"] is True, "bench: motion_ok_last is not true")
+    for k in ("ate_rendered_world_m", "ate_rendered_world_windowed_m"):
+        check(np.isfinite(d[k]) and d[k] < ATE_SHARE * path,
+              f"bench {k} {d[k]} not under {ATE_SHARE:.0%} of the "
+              f"{path:.3f} m path")
+    for k in ("fps_feed_inclusive", "fps_subpix_on", "fps_brief16",
+              "fps_device_scan", "fps_windowed", "h2d_link_mb_per_s",
+              "h2d_pipelined_mb_per_s"):
+        check(d[k] > 0, f"bench {k} {d[k]}")
+    want = dict(bench_launches(40, 5, 50, 40), brief_planes=0,
+                fast_detect=0, fast_margins=0)
+    check(counts == want, f"bench launches {counts}, want {want}")
+    st = d["stage_ms"]
+    print(f"bench: {res['value']} fps (vs_baseline {res['vs_baseline']}, "
+          f"{d['ms_per_frame']} ms/frame), run_sequence "
+          f"{d['fps_device_scan']}, brief16 {d['fps_brief16']}, subpix "
+          f"{d['fps_subpix_on']}, windowed (ba_every=2, ba_iters=2) "
+          f"{d['fps_windowed']}, feed {d['fps_feed_inclusive']} "
+          f"({d['feed_source']}); H2D {d['h2d_link_mb_per_s']} / "
+          f"{d['h2d_pipelined_mb_per_s']} MB/s; stage ms floor "
+          f"{st['harness_floor']} detect {st['detect_pair']} extract "
+          f"{st['extract_total']} motion {st['motion_ransac_lm']}; ATE "
+          f"{d['ate_rendered_world_m']} / "
+          f"{d['ate_rendered_world_windowed_m']} m of a {path:.3f} m path; "
+          f"launches {counts}; {bench_s:.1f} s [{card}]", flush=True)
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench_window.main(["--passes", str(BENCH_WINDOW_PASSES)])
+    torch.cuda.synchronize()
+    window_counts = read_counts()
+    check(rc == 0, f"bench_window returned {rc}")
+    want = dict(bench_window_launches(
+        len(bench_window.GRID) + len(bench_window.WINDOWS), 20,
+        BENCH_WINDOW_PASSES, 40), brief_planes=0, fast_detect=0,
+        fast_margins=0)
+    check(window_counts == want,
+          f"bench_window launches {window_counts}, want {want}")
+    lines = out.getvalue().splitlines()
+
+    def table(header, n):
+        check(header in lines, f"bench_window printed no {header!r}")
+        i = lines.index(header)
+        return [[c.strip() for c in ln.split("|")[1:-1]]
+                for ln in lines[i + 2:i + 2 + n]]
+
+    tab = table("| mode | ba_every | iters | fps/chip | ATE (m) |",
+                1 + len(bench_window.GRID))
+    wins = table("| window W | fps/chip | ATE (m) | comm/iter (B) |",
+                 len(bench_window.WINDOWS))
+    check([(int(r[1]), int(r[2])) for r in tab[1:]]
+          == list(bench_window.GRID)
+          and [int(r[0]) for r in wins] == list(bench_window.WINDOWS),
+          f"bench_window rows {tab}, {wins}")
+    ates = [tab[0][4]] + [r[4] for r in tab[1:]] + [r[2] for r in wins]
+    fpss = [r[3] for r in tab[1:]] + [r[1] for r in wins]
+    check(all(np.isfinite(float(a)) and float(a) < ATE_SHARE * path
+              for a in ates) and all(float(f) > 0 for f in fpss),
+          f"bench_window fps {fpss}, ATE {ates}")
+    print(f"bench_window ({BENCH_WINDOW_PASSES} pass): plain ATE "
+          f"{tab[0][4]} m; (ba_every, iters) fps ATE: "
+          + ", ".join(f"({r[1]}, {r[2]}) {r[3]} {r[4]}" for r in tab[1:])
+          + "; W fps ATE at (2, 2): "
+          + ", ".join(f"{r[0]} {r[1]} {r[2]}" for r in wins)
+          + f"; launches {window_counts}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return {"bench": counts, "bench_window": window_counts}
 
 
 def main() -> int:
@@ -2286,6 +2445,8 @@ def main() -> int:
             shutil.rmtree(tmp, ignore_errors=True)
         mk["max_abs_err"] = max(mk["max_abs_err"], m4["err"])
         mk["ms_stereo_4w"], mk["plain_ms_stereo_4w"] = m4["ms"], m4["plain"]
+        # ---- phase 9: the benchmark ----------------------------------
+        by_path.update(bench_phase(torch, card, reset_counts, read_counts))
 
     line = []
     for k in kernels:
@@ -2304,6 +2465,8 @@ def main() -> int:
                   f"{name} was never launched by the command line")
     for path, names in (("report", ("fast_grid", "brief_keypoints",
                                      "match_reduce")),
+                        ("bench", ("fast_grid", "brief_keypoints",
+                                   "match_reduce")),
                         ("explore", ("fast_margins",))):
         for name in names:
             check(by_path[path][name] > 0, f"{name} not launched by {path}")

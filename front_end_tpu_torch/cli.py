@@ -13,10 +13,12 @@
   report           study, detection, descriptor and recorded-run figures
                    (SVG) and REPORT.md
   explore          a detector family's whole parameter grid over frames
+  bench            the benchmark: VO frames/s at KITTI size, its variants,
+                   the feed, stage times and the rendered-world ATE, as one
+                   JSON line (`front_end_tpu_torch/bench.py`)
 
 Every command that computes runs on the card unless `--device cpu` asks
-for the CPU.  The JAX package's `bench` (its benchmark script) has no
-counterpart yet.
+for the CPU.  Every command of the JAX package has its counterpart here.
 """
 from __future__ import annotations
 
@@ -447,6 +449,8 @@ def cmd_explore(args):
 
 
 def main(argv=None):
+    from front_end_tpu_torch import bench
+
     p = argparse.ArgumentParser(prog="front_end_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -561,6 +565,10 @@ def main(argv=None):
     x.add_argument("--top", type=int, default=12)
     device_flag(x)
     x.set_defaults(fn=cmd_explore)
+
+    b = sub.add_parser("bench")
+    bench.add_arguments(b)
+    b.set_defaults(fn=bench.run)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -6,7 +6,12 @@ the LM solver takes its Jacobian that way.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+DEG2RAD = math.pi / 180.0
+RAD2DEG = 180.0 / math.pi
 
 
 def create_homog(R=None, T=None):
@@ -74,6 +79,22 @@ def get_motion(H, degrees: bool = True):
     if degrees:
         ang = ang * (180.0 / torch.pi)
     return ang, H[..., :3, 3]
+
+
+def decompose_transform(H):
+    """The reference's `decomposeTransform`: the extrinsic [R|t] -> the
+    pose form [R | -Rᵀ·t] (the camera centre), as a homogeneous matrix."""
+    R = H[..., :3, :3]
+    T = -(R.transpose(-1, -2) @ H[..., :3, 3:4])
+    return create_homog(R, T[..., 0])
+
+
+def motion_absolute_error(H, H_est):
+    """The reference's `compareAbsoluteMotion`: (|Δ[roll, pitch, yaw]| in
+    degrees, |Δxyz| in the translation's unit)."""
+    a1, t1 = get_motion(H)
+    a2, t2 = get_motion(H_est)
+    return (a1 - a2).abs(), (t1 - t2).abs()
 
 
 def invert_homog(H):

@@ -10,6 +10,12 @@ import numpy as np
 import torch
 
 
+def to_gray(rgb):
+    """(..., H, W, 3) uint8 or float -> (..., H, W) float32, ITU-R BT.601."""
+    rgb = torch.as_tensor(rgb).to(torch.float32)
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
 def _edge_index(n: int, lo: int, hi: int, device):
     return torch.arange(-lo, n + hi, device=device).clamp_(0, n - 1)
 
@@ -68,6 +74,13 @@ def _sep_conv(img, kx, ky):
         term = float(ky[j]) * vy(j - ry, 0)
         acc = term if acc is None else acc + term
     return acc
+
+
+def sobel(img):
+    """-> (gx, gy), OpenCV's 3×3 Sobel kernels with edge padding."""
+    d = np.array([-1.0, 0.0, 1.0], np.float32)
+    s = np.array([1.0, 2.0, 1.0], np.float32)
+    return _sep_conv(img, d, s), _sep_conv(img, s, d)
 
 
 def gaussian_kernel(sigma: float, radius: int | None = None) -> np.ndarray:
@@ -181,6 +194,20 @@ def rotated_samples(xy, offs, ca, sa, step):
     ry = (offs[None, :, 1] * sa[:, None] + offs[None, :, 0] * ca[:, None]) \
         * step
     return torch.stack([xy[:, 0:1] + rx, xy[:, 1:2] + ry], -1)
+
+
+def extract_patches(img, xy, patch: int):
+    """(P, P) patches of an (H, W) image at the rounded (N, 2) keypoints
+    (x, y) -> (N, P, P) float32.  A patch near the border slides inward to
+    stay inside the image."""
+    H, W = img.shape[-2:]
+    r = patch // 2
+    x0 = (torch.round(xy[:, 0]).to(torch.int64) - r).clamp(0, W - patch)
+    y0 = (torch.round(xy[:, 1]).to(torch.int64) - r).clamp(0, H - patch)
+    off = torch.arange(patch, device=img.device)
+    rows = (y0[:, None] + off)[:, :, None]
+    cols = (x0[:, None] + off)[:, None, :]
+    return img.to(torch.float32)[rows, cols]
 
 
 def bilinear_sample(img, xy):

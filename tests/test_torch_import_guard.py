@@ -39,7 +39,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 71, out.stdout
+    assert int(count) >= 73, out.stdout
     assert bad == "[]", bad
 
 
@@ -74,21 +74,22 @@ def test_every_module_of_the_port_is_walked():
                 "io.native_feed", "native", "pipeline.telemetry",
                 "utils.checkpoint", "utils.png", "eval.metrics", "viz.draw",
                 "sim.synthetic", "ba.distributed", "analysis.sweeps",
-                "analysis.report", "analysis.explore", "viz.svg"):
+                "analysis.report", "analysis.explore", "viz.svg", "bench",
+                "bench_window"):
         assert f"front_end_tpu_torch.{mod}" in names, mod
 
 
 def test_cli_help_loads_no_jax_and_no_bench():
     """`python -m front_end_tpu_torch.cli --help` (and each command's
     help) loads no `jax`, `flax`, `front_end_tpu` or root `bench`
-    module, and lists the commands the port has: all of the JAX
-    command's but `bench`, `vo --shard-ba` among them."""
+    module, and lists the commands the port has: all nine of the JAX
+    command's, `bench` and `vo --shard-ba` among them."""
     code = (
         "import runpy, sys\n"
         "for argv in (['--help'], ['vo', '--help'], "
         "['detect-sweep', '--help'], ['extract-motion', '--help'], "
         "['ba-scaling', '--help'], ['report', '--help'], "
-        "['explore', '--help']):\n"
+        "['explore', '--help'], ['bench', '--help']):\n"
         "    sys.argv = ['front_end_tpu_torch.cli', *argv]\n"
         "    try:\n"
         "        runpy.run_module('front_end_tpu_torch.cli', "
@@ -102,7 +103,8 @@ def test_cli_help_loads_no_jax_and_no_bench():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
     assert ("{gen-table,detect-sweep,extract-motion,ba-scaling,"
-            "ransac-smoke,vo,report,explore}") in out.stdout
+            "ransac-smoke,vo,report,explore,bench}") in out.stdout
+    assert "--stage-calls" in out.stdout and "--rendered-frames" in out.stdout
     assert "--shard-ba" in out.stdout and "--device" in out.stdout
     assert "--multihost" in out.stdout and "--devices" in out.stdout
 

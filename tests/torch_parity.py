@@ -4,6 +4,9 @@ Data crosses between the two packages as numpy arrays only.
 """
 from __future__ import annotations
 
+import contextlib
+import io
+
 import numpy as np
 import torch
 
@@ -30,6 +33,14 @@ def image(h=180, w=300, seed=0, block=6):
                   np.ones((block, block)))[:h, :w]
     img = img + rs.uniform(0, 2, img.shape)
     return np.round(img).astype(np.float32)
+
+
+def run_main(main, argv) -> str:
+    """A script's `main(argv)` in this process -> what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main(argv) == 0
+    return out.getvalue()
 
 
 def t(a, dtype=None):
