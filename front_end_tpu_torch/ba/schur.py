@@ -25,6 +25,7 @@ import torch
 from front_end_tpu_torch.ba import factors
 from front_end_tpu_torch.geometry import se3
 from front_end_tpu_torch.geometry.camera import StereoRig
+from front_end_tpu_torch.pipeline import telemetry
 from front_end_tpu_torch.utils.precision import f32_precision
 
 GAUGE_PRIOR = 1e12
@@ -167,6 +168,7 @@ def ba_solve(poses0, X0, meas, vis, rig: StereoRig, *, iters: int = 12,
         *new_ne, new_cost = _normal_equations(new_poses, new_X, meas, vis_w,
                                               rig, huber_px, total)
         accept = new_cost < cost
+        telemetry.count("ba.accepted", accept)
         poses = torch.where(accept, new_poses, poses)
         X = torch.where(accept, new_X, X)
         cost = torch.where(accept, new_cost, cost)

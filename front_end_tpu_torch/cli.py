@@ -23,6 +23,7 @@ for the CPU.  Every command of the JAX package has its counterpart here.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -350,31 +351,38 @@ def _run_vo(args, group=None, dev=None):
 
     tlog = telemetry.TelemetryLog() if args.record and lead else None
     poses = []
-    for i, (l, r) in enumerate(DeviceFeed(skip_done(frame_iter),
-                                          device=dev)):
-        if tlog is None:
-            state, out, frame, feats = step(state, l, r)
-        else:
-            with telemetry.FrameClock(tlog, device=dev):
+    # --record keeps the program's spans and counters too, per frame
+    with (telemetry.recording() if tlog is not None
+          else contextlib.nullcontext()) as rec:
+        for i, (l, r) in enumerate(DeviceFeed(skip_done(frame_iter),
+                                              device=dev,
+                                              first_frame=n_done)):
+            if tlog is None:
                 state, out, frame, feats = step(state, l, r)
-            tlog.count("n_detect_l", frame.n_detect_l)
-            tlog.count("n_stereo", frame.n_stereo)
-            if args.window:
-                tlog.count("n_inliers", frame.n_inliers)
-                tlog.count("n_tracked", out.n_tracked)
-                tlog.count("ba_rms_px", out.ba_rms_px)
             else:
-                tlog.count("n_tracks", frame.n_tracks)
-                tlog.count("n_inliers", frame.n_inliers)
-        poses.append(frame.pose)
-        if args.debug_images and lead and i % args.debug_every == 0:
-            _dump_debug(args.debug_images, i, l, r, feats, frame)
-        if args.verbose and i % 25 == 0:
-            extra = (f" tracked={int(out.n_tracked)} "
-                     f"ba_rms={float(out.ba_rms_px):.2f}px"
-                     if args.window else "")
-            say(f"frame {i}: stereo={int(frame.n_stereo)} "
-                f"inliers={int(frame.n_inliers)}{extra}")
+                with telemetry.FrameClock(tlog, device=dev):
+                    state, out, frame, feats = step(state, l, r)
+                tlog.count("n_detect_l", frame.n_detect_l)
+                tlog.count("n_stereo", frame.n_stereo)
+                if args.window:
+                    tlog.count("n_inliers", frame.n_inliers)
+                    tlog.count("n_tracked", out.n_tracked)
+                    tlog.count("ba_rms_px", out.ba_rms_px)
+                else:
+                    tlog.count("n_tracks", frame.n_tracks)
+                    tlog.count("n_inliers", frame.n_inliers)
+            poses.append(frame.pose)
+            if args.debug_images and lead and i % args.debug_every == 0:
+                _dump_debug(args.debug_images, i, l, r, feats, frame)
+            if args.verbose and i % 25 == 0:
+                extra = (f" tracked={int(out.n_tracked)} "
+                         f"ba_rms={float(out.ba_rms_px):.2f}px"
+                         if args.window else "")
+                say(f"frame {i}: stereo={int(frame.n_stereo)} "
+                    f"inliers={int(frame.n_inliers)}{extra}")
+    if rec is not None:
+        telemetry.add_recording(tlog, rec,
+                                range(n_done, n_done + len(poses)))
     new = (torch.stack(poses).cpu().numpy().astype(np.float64) if poses
            else np.zeros((0, 4, 4)))
     poses = np.concatenate([prior, new])
@@ -532,8 +540,9 @@ def main(argv=None):
                         "(PNG) every --debug-every frames to DIR")
     v.add_argument("--debug-every", type=int, default=10)
     v.add_argument("--record", default=None, metavar="PATH",
-                   help="record per-frame telemetry (frame time + "
-                        "counters) to PATH (.npz)")
+                   help="record per-frame telemetry (frame time, "
+                        "counters, the program's spans as stage_<span> "
+                        "host seconds and its counters) to PATH (.npz)")
     v.add_argument("--save-state", default=None, metavar="PATH",
                    help="checkpoint the carried pipeline state and the "
                         "trajectory after the run")

@@ -20,6 +20,12 @@ already on the device pass through.
 On the CPU the feed is a plain ordered prefetch.  `threaded=False` does
 the same work inline on the consumer's thread.  An exception raised by
 the upstream iterator surfaces on the next `__next__`.
+
+Under a `telemetry.recording()` the feed's work is spanned per item,
+numbered from `first_frame` in order: `feed.source` (pulling the item
+upstream: the decode of a file source), `feed.put` (slot wait, pinned
+copy, the copy's issue) and, on the consumer, `feed.wait` (blocked until
+the item is ready).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import threading
 import numpy as np
 import torch
 
+from front_end_tpu_torch.pipeline import telemetry
 from front_end_tpu_torch.utils.precision import resolve_device
 
 
@@ -57,11 +64,13 @@ class DeviceFeed:
 
     depth: frames in flight (ring slots on the card).  dtype: optional
     numpy dtype to convert to on the host before the copy (default: keep
-    the source dtype)."""
+    the source dtype).  first_frame: the frame id of the first item in
+    the feed's spans (a resumed run's first frame)."""
 
     def __init__(self, frame_iter, depth: int = 3, device="cuda",
-                 dtype=None, threaded: bool = True):
+                 dtype=None, threaded: bool = True, first_frame: int = 0):
         self._device = resolve_device(device)
+        self._frame = first_frame         # the next item's frame id
         self._dtype = dtype
         self._cuda = self._device.type == "cuda"
         if self._cuda:
@@ -76,7 +85,8 @@ class DeviceFeed:
         if threaded:
             self._q = queue.Queue(maxsize=depth)
             self._thread = threading.Thread(
-                target=self._worker, args=(iter(frame_iter),), daemon=True)
+                target=self._worker, args=(iter(frame_iter), first_frame),
+                daemon=True)
             self._thread.start()
         else:
             self._it = iter(frame_iter)
@@ -105,10 +115,20 @@ class DeviceFeed:
             slot.copied.record(self._stream)
         return dl, dr, slot.copied
 
-    def _worker(self, it):
+    def _pull(self, it, k: int):
+        """Item k from upstream onto the device; None when it is done."""
+        with telemetry.span("feed.source", k):
+            pair = next(it, None)
+        if pair is None:
+            return None
+        with telemetry.span("feed.put", k):
+            return self._put(*pair)
+
+    def _worker(self, it, k: int):
         try:
-            for l, r in it:
-                self._q.put(self._put(l, r))
+            while (item := self._pull(it, k)) is not None:
+                self._q.put(item)
+                k += 1
         except Exception as e:          # surfaced on the next __next__
             self._err = e
         finally:
@@ -119,13 +139,17 @@ class DeviceFeed:
 
     def __next__(self):
         if self._threaded:
-            item = self._q.get()
+            with telemetry.span("feed.wait", self._frame):
+                item = self._q.get()
             if item is None:
                 if self._err is not None:
                     raise self._err
                 raise StopIteration
         else:
-            item = self._put(*next(self._it))
+            item = self._pull(self._it, self._frame)
+            if item is None:
+                raise StopIteration
+        self._frame += 1
         l, r, copied = item
         if copied is not None:
             stream = torch.cuda.current_stream(self._device)

@@ -20,6 +20,7 @@ import os
 import numpy as np
 
 from front_end_tpu_torch.geometry.camera import StereoRig
+from front_end_tpu_torch.pipeline import telemetry
 from front_end_tpu_torch.utils import png
 
 
@@ -34,7 +35,13 @@ def _read_pgm(f) -> np.ndarray:
 
 def _read_image(path) -> np.ndarray:
     """(H, W) uint8 gray: PIL's `convert("L")` where PIL is installed, else
-    a binary PGM or an 8-bit PNG decoded to the same values."""
+    a binary PGM or an 8-bit PNG decoded to the same values.  Span
+    `io.decode`."""
+    with telemetry.span("io.decode"):
+        return _decode(path)
+
+
+def _decode(path) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError:

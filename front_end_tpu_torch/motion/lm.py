@@ -19,6 +19,7 @@ import torch
 
 from front_end_tpu_torch.geometry import se3
 from front_end_tpu_torch.geometry.camera import StereoRig
+from front_end_tpu_torch.pipeline import telemetry
 from front_end_tpu_torch.utils.precision import f32_precision
 
 
@@ -113,6 +114,7 @@ def refine_motion(H0, Xa, uvb, valid, rig: StereoRig, *, iters: int = 10,
         r_new = rig.project4(p_new) - uvb
         cost_new = robust_cost(r_new)
         accept = cost_new < cost
+        telemetry.count("lm.accepted", accept)
         xi = torch.where(accept, xi_new, xi)
         p = torch.where(accept, p_new, p)
         r = torch.where(accept, r_new, r)

@@ -44,6 +44,7 @@ from front_end_tpu_torch.ops import orb as orb_mod
 from front_end_tpu_torch.ops import subpix as subpix_mod
 from front_end_tpu_torch.ops import surf as surf_mod
 from front_end_tpu_torch.ops.dense_select import take_rows
+from front_end_tpu_torch.pipeline import telemetry
 from front_end_tpu_torch.types import Descriptors, Keypoints
 from front_end_tpu_torch.utils.precision import f32_precision, resolve_device
 
@@ -246,18 +247,20 @@ def _estimate_motion(sampler, cur: FrameFeatures, prev: FrameFeatures,
     pair_valid = (tm.valid & cur.stereo_valid
                   & take_rows(prev.stereo_valid, tm.train_idx))
 
-    if cfg.motion == "essential":
-        res = essential_mod.essential_scaled_motion(
-            sampler, uvp, cur.uv4, Xp, cur.X, pair_valid, rig,
-            n_hyps=cfg.ransac_hyps, threshold_px=1.0)
-    else:
-        res = ransac_mod.rigid_ransac(sampler, Xp, cur.X, pair_valid,
-                                      n_hyps=cfg.ransac_hyps,
-                                      threshold=cfg.ransac_threshold)
+    with telemetry.span("vo.ransac"):
+        if cfg.motion == "essential":
+            res = essential_mod.essential_scaled_motion(
+                sampler, uvp, cur.uv4, Xp, cur.X, pair_valid, rig,
+                n_hyps=cfg.ransac_hyps, threshold_px=1.0)
+        else:
+            res = ransac_mod.rigid_ransac(sampler, Xp, cur.X, pair_valid,
+                                          n_hyps=cfg.ransac_hyps,
+                                          threshold=cfg.ransac_threshold)
     H, inliers, n_inl = res.H, res.inliers, res.n_inliers
     if cfg.lm_refine:
-        H = lm_mod.refine_motion(H, Xp, cur.uv4, inliers, rig,
-                                 iters=cfg.lm_iters).H
+        with telemetry.span("vo.lm"):
+            H = lm_mod.refine_motion(H, Xp, cur.uv4, inliers, rig,
+                                     iters=cfg.lm_iters).H
     ok = n_inl >= cfg.min_track_inliers
     H = torch.where(ok, H, torch.eye(4, dtype=H.dtype, device=H.device))
     return H, dict(n_tracks=pair_valid.sum(), n_inliers=n_inl, motion_ok=ok,
@@ -271,16 +274,25 @@ def vo_step(state: VOState, left, right, rig: StereoRig, cfg: VOConfig,
             ) -> tuple[VOState, VOFrameOutput]:
     """Process one rectified stereo pair on the state's device.  `sampler`
     draws RANSAC minimal sets (default: `InverseCdfSampler` on the state's
-    generator)."""
+    generator).  Spans `vo.step` ⊃ `vo.extract`, `vo.motion` (⊃
+    `vo.ransac`, `vo.lm`), frame `state.frame_idx`."""
+    with telemetry.span("vo.step", state.frame_idx):
+        return _vo_step(state, left, right, rig, cfg, sampler)
+
+
+def _vo_step(state: VOState, left, right, rig: StereoRig, cfg: VOConfig,
+             sampler: Callable | None):
     dev = state.pose.device
     left = torch.as_tensor(left).to(device=dev, dtype=torch.float32)
     right = torch.as_tensor(right).to(device=dev, dtype=torch.float32)
     if sampler is None:
         sampler = ransac_mod.InverseCdfSampler(state.generator)
 
-    cur, tl, tr, det = _extract_frame(left, right, state.thresholds_l,
-                                      state.thresholds_r, rig, cfg)
-    H, mot = _estimate_motion(sampler, cur, state.prev, rig, cfg)
+    with telemetry.span("vo.extract"):
+        cur, tl, tr, det = _extract_frame(left, right, state.thresholds_l,
+                                          state.thresholds_r, rig, cfg)
+    with telemetry.span("vo.motion"):
+        H, mot = _estimate_motion(sampler, cur, state.prev, rig, cfg)
     is_first = state.frame_idx == 0
     if is_first:     # no predecessor: identity motion
         H = torch.eye(4, dtype=H.dtype, device=dev)

@@ -25,6 +25,7 @@ import torch
 
 from front_end_tpu_torch.geometry import se3
 from front_end_tpu_torch.geometry.camera import StereoRig
+from front_end_tpu_torch.pipeline import telemetry
 from front_end_tpu_torch.pipeline import vo as vo_mod
 from front_end_tpu_torch.types import Descriptors
 from front_end_tpu_torch.utils.precision import f32_precision
@@ -89,16 +90,25 @@ def init_state(rig: StereoRig, cfg: WindowVOConfig, seed: int = 0,
 @f32_precision
 def window_vo_step(state: WindowVOState, left, right, rig: StereoRig,
                    cfg: WindowVOConfig, sampler: Callable | None = None):
-    """One windowed-VO frame on the state's device."""
+    """One windowed-VO frame on the state's device.  Spans `window.step`
+    ⊃ `vo.step`, `window.tracker`, `window.ba`, frame
+    `state.vo.frame_idx`."""
+    with telemetry.span("window.step", state.vo.frame_idx):
+        return _window_vo_step(state, left, right, rig, cfg, sampler)
+
+
+def _window_vo_step(state: WindowVOState, left, right, rig: StereoRig,
+                    cfg: WindowVOConfig, sampler: Callable | None):
     new_vo, out = vo_mod.vo_step(state.vo, left, right, rig, cfg.vo, sampler)
     cur = new_vo.prev                         # this frame's features
     dev = new_vo.pose.device
     pose_cw = se3.invert_homog(new_vo.pose)   # camera_from_world
 
-    upd = tracker_mod.update(
-        state.win, cur.kps,
-        Descriptors(cur.bits, cur.packed, cfg.vo.desc_norm), cur.X,
-        cur.stereo_valid, cur.uv4, pose_cw, cfg.tracker, rig)
+    with telemetry.span("window.tracker"):
+        upd = tracker_mod.update(
+            state.win, cur.kps,
+            Descriptors(cur.bits, cur.packed, cfg.vo.desc_norm), cur.X,
+            cur.stereo_valid, cur.uv4, pose_cw, cfg.tracker, rig)
     win = upd.state
 
     # BA needs a full window of poses and runs every ba_every frames; the
@@ -106,10 +116,11 @@ def window_vo_step(state: WindowVOState, left, right, rig: StereoRig,
     W = cfg.tracker.window
     do_ba = win.frame_idx >= W and win.frame_idx % cfg.ba_every == 0
     if do_ba:
-        win, res = tracker_mod.run_window_ba(
-            win, rig, iters=cfg.ba_iters, huber_px=cfg.huber_px,
-            min_obs=cfg.min_obs, max_landmarks=cfg.ba_max_landmarks,
-            group=cfg.ba_group)
+        with telemetry.span("window.ba"):
+            win, res = tracker_mod.run_window_ba(
+                win, rig, iters=cfg.ba_iters, huber_px=cfg.huber_px,
+                min_obs=cfg.min_obs, max_landmarks=cfg.ba_max_landmarks,
+                group=cfg.ba_group)
         pose_cw_ref, ba_cost, ba_rms = res.poses[-1], res.cost, res.rms_px
     else:
         pose_cw_ref = pose_cw

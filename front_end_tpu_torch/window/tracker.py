@@ -34,6 +34,7 @@ from front_end_tpu_torch.geometry.camera import StereoRig
 from front_end_tpu_torch.ops import match as match_mod
 from front_end_tpu_torch.ops.dense_select import (compact_rows, put_rows,
                                                   topk_select)
+from front_end_tpu_torch.pipeline import telemetry
 from front_end_tpu_torch.types import Descriptors, Keypoints
 from front_end_tpu_torch.utils.precision import f32_precision, resolve_device
 
@@ -286,6 +287,7 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
             + store.track_len.clamp(max=9999).to(torch.float32) + 1.0,
             torch.zeros((), device=use.device))
         sel = topk_select(score, max_landmarks)
+        telemetry.count("ba.landmarks", sel.valid)
         Xk, meask, visk = (compact_rows(sel, a)
                            for a in (store.Xw, store.meas, vis))
         if group is None:
@@ -307,6 +309,7 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
         return state._replace(store=store._replace(Xw=Xw),
                               poses=res.poses), res
 
+    telemetry.count("ba.landmarks", use)
     res = schur.ba_solve(state.poses, store.Xw, store.meas, vis, rig,
                          iters=iters, huber_px=huber_px)
     Xw = torch.where(use[:, None], res.landmarks, store.Xw)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from front_end_tpu import features as jfeatures
+from front_end_tpu.pipeline import telemetry as jtelemetry
 from front_end_tpu_torch import cli, services
 from front_end_tpu_torch.geometry.camera import StereoRig
 from front_end_tpu_torch.ops import grid
@@ -85,10 +86,47 @@ def test_vo_record_is_readable(full_run):
     stages, counters, meta = telemetry.load_log(full_run["rec"])
     assert stages["frame"].shape == (T,) and (stages["frame"] > 0).all()
     assert set(counters) == {"n_detect_l", "n_stereo", "n_tracks",
-                             "n_inliers"}
+                             "n_inliers", "lm.accepted"}
     assert (counters["n_stereo"] > 50).all()
     assert meta == {"descriptor": "brief", "window": False,
                     "platform": "cpu", "resolution": f"{H}x{W}"}
+
+
+SPANS = ("feed.wait", "feed.source", "feed.put", "io.decode", "vo.step",
+         "vo.extract", "vo.motion", "vo.ransac", "vo.lm")
+
+
+def test_vo_record_keeps_the_programs_spans_and_counters(full_run):
+    """`--record` adds each span's host seconds a frame as `stage_<span>`
+    and the program's counters as `counter_<name>`; `report`'s reader and
+    the JAX package's read them."""
+    for load in (telemetry.load_log, jtelemetry.load_log):
+        stages, counters, _ = load(full_run["rec"])
+        assert set(stages) == {"frame", *SPANS}
+        for name in SPANS:
+            assert stages[name].shape == (T,) and (stages[name] > 0).all()
+        assert (stages["vo.lm"] < stages["vo.motion"]).all()
+        assert (stages["vo.motion"] < stages["vo.step"]).all()
+        lm = counters["lm.accepted"]
+        assert lm.shape == (T,) and ((lm >= 0) & (lm <= 6)).all()
+        assert lm[1:].sum() > 0
+
+
+def test_vo_record_after_a_resume_keeps_its_frames(kitti_root, tmp_path):
+    """A resumed run's recording holds its own frames: the step's spans
+    (frame ids from the checkpoint on) and the feed's (numbered from the
+    first frame it reads) share each row."""
+    root, _, _ = kitti_root
+    ck, rec = str(tmp_path / "ck"), str(tmp_path / "rec")
+    cli.main(["vo", "--kitti", root, "--frames", "3", "--device", "cpu",
+              "--save-state", ck])
+    cli.main(["vo", "--kitti", root, "--frames", "5", "--device", "cpu",
+              "--resume", ck, "--record", rec])
+    stages, counters, _ = telemetry.load_log(rec)
+    for name in ("frame", *SPANS):
+        assert stages[name].shape == (2,), name
+        assert np.isfinite(stages[name]).all(), name
+    assert counters["lm.accepted"].shape == (2,)
 
 
 def test_vo_debug_images(full_run):
@@ -131,8 +169,15 @@ def test_vo_window_runs(kitti_root, tmp_path, capsys):
     cli.main(["vo", "--kitti", root, "--frames", "5", "--device", "cpu",
               "--window", "--max-age", "2", "--record", rec, "--out", traj])
     assert "(windowed BA mode)" in capsys.readouterr().out
-    _, counters, meta = telemetry.load_log(rec)
+    stages, counters, meta = telemetry.load_log(rec)
     assert meta["window"] is True and (counters["n_tracked"][1:] > 50).all()
+    assert {"window.step", "window.tracker", "window.ba"} <= set(stages)
+    # W = 3: the BA runs from the third frame on
+    assert np.isnan(stages["window.ba"][:2]).all()
+    assert np.isfinite(stages["window.ba"][2:]).all()
+    assert (counters["ba.landmarks"][2:] > 0).all()
+    assert ((counters["ba.accepted"] >= 0)
+            & (counters["ba.accepted"] <= 6)).all()
     poses = np.loadtxt(traj)
     assert poses.shape == (5, 12) and np.isfinite(poses).all()
     t_true = pan_poses(5, BASELINE)[-1, 0, 3]
