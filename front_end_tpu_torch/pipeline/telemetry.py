@@ -18,8 +18,8 @@ Spans and counters inside the program, which never wait for the device:
   (`vo.step`, `vo.extract`, `vo.motion`, `vo.ransac`, `vo.lm`,
   `window.step`, `window.tracker`, `window.ba`, `feed.wait`,
   `feed.source`, `feed.put`, `io.decode`); `count(name, value)` keeps a
-  value the step already computed (`lm.accepted`, `ba.accepted`,
-  `ba.landmarks`).
+  value the step already computed (`lm.accepted`, `lm.graph`,
+  `ba.accepted`, `ba.landmarks`).
 - Both are off unless a `recording()` is open: `span` then hands back
   one shared no-op context after one test of a module flag, and `count`
   returns.  Inside `recording()` a span stores its name, frame, parent,
@@ -237,6 +237,11 @@ def count(name: str, value) -> None:
         return
     st = rec._stack()
     rec.counts.append((name, st[-1].frame if st else None, value))
+
+
+def is_recording() -> bool:
+    """Whether a `recording()` is open."""
+    return _active is not None
 
 
 @contextlib.contextmanager

@@ -765,3 +765,163 @@ def test_sift_on_the_card_against_the_cpu(dev):
     same = dg.keypoints.angle.cpu() == dc.keypoints.angle
     assert float((~same).float().mean()) <= 0.005
     assert float((Dg.bits.cpu() - Dc.bits)[same].abs().max()) <= 1e-5
+
+
+def _bench_rig(config):
+    """The rig of a benchmark configuration (`vobench/configs/`)."""
+    import json
+    from pathlib import Path
+
+    from front_end_tpu_torch.geometry.camera import StereoRig
+    path = (Path(__file__).resolve().parents[1] / "vobench" / "configs"
+            / f"{config}.json")
+    return StereoRig.create(**json.loads(path.read_text())["rig"])
+
+
+def _lm_inputs(rig, n, seed, valid, dev):
+    """An LM problem as `vo_step` poses it: landmarks in front of the rig,
+    their stereo projections after a small motion with 0.3 px noise and
+    15 % outliers, and a starting pose off the true one."""
+    from front_end_tpu_torch.geometry import se3
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=g)
+    X = (u(n, 3) * torch.tensor([20.0, 6.0, 35.0])
+         + torch.tensor([-10.0, -3.0, 5.0]))
+    xi = (u(6) - 0.5) * torch.tensor([0.1, 0.05, 1.6, 0.02, 0.04, 0.01])
+    H = se3.se3_exp(xi[None])[0]
+    uvb = rig.project4(se3.transform_points(H, X)) + 0.3 * (u(n, 4) - 0.5)
+    uvb = torch.where(u(n, 1) < 0.15, uvb + 20.0, uvb)
+    H0 = se3.se3_exp((xi + 0.01 * (u(6) - 0.5))[None])[0]
+    mask = {"all": torch.ones(n, dtype=torch.bool),
+            "none": torch.zeros(n, dtype=torch.bool),
+            "mixed": u(n) < 0.7}[valid]
+    return tuple(t.to(dev) for t in (H0, X, uvb, mask))
+
+
+def _fresh_graphs(monkeypatch):
+    from collections import OrderedDict
+
+    from front_end_tpu_torch.motion import lm
+    graphs = OrderedDict()
+    monkeypatch.setattr(lm, "_graphs", graphs)
+    return lm, graphs
+
+
+@pytest.mark.parametrize("iters", [6, 25])
+@pytest.mark.parametrize("config", ["kitti00-vo-brief",
+                                    "euroc-mh01-window-surfext"])
+def test_lm_graph_replays_equal_the_eager_solver(dev, monkeypatch, config,
+                                                 iters):
+    """Successive calls with fresh inputs (`valid` mixed, all and none)
+    replay one graph, and each replay's H, cost and cost0 equal `_refine`
+    run eagerly on the same inputs bit for bit: the static inputs are
+    refreshed.  What a call returned stays as it was after later replays."""
+    from front_end_tpu_torch.pipeline import telemetry
+    lm, graphs = _fresh_graphs(monkeypatch)
+    rig = _bench_rig(config)
+    kept = []
+    with telemetry.recording() as rec:
+        for k, valid in enumerate(["mixed", "all", "none", "mixed", "all",
+                                   "mixed"]):
+            args = _lm_inputs(rig, 2304, 100 * iters + k, valid, dev)
+            got = lm.refine_motion(*args, rig, iters=iters)
+            ref, accepts = lm._refine(*args, rig, iters, 3.0, 1e-3)
+            for a, b in zip(got, ref):
+                assert bool(torch.isfinite(a).all())
+                assert torch.equal(a, b)
+            if valid == "mixed":
+                assert float(got.cost) < float(got.cost0)
+            kept.append((got, tuple(t.clone() for t in got)))
+    assert len(graphs) == 1
+    for got, copy in kept:
+        assert all(torch.equal(a, b) for a, b in zip(got, copy))
+    c = rec.counters()
+    assert [v for _, v in c["lm.graph"]] == [1.0] * 6
+    assert len(c["lm.accepted"]) == 6 * iters
+
+
+def test_lm_graph_keys_and_bound(dev, monkeypatch):
+    """A new N, rig or iters captures a new graph; a key met again replays
+    its graph; past `MAX_GRAPHS` keys the least recently used goes."""
+    lm, graphs = _fresh_graphs(monkeypatch)
+    kitti, euroc = (_bench_rig(c) for c in ("kitti00-vo-brief",
+                                            "euroc-mh01-window-surfext"))
+    keys = [(kitti, 2304, 6), (kitti, 2304, 25), (euroc, 2304, 6),
+            (kitti, 1000, 6), (euroc, 4608, 6)]
+    seen = []
+    for k, (rig, n, iters) in enumerate(keys):
+        args = _lm_inputs(rig, n, k, "mixed", dev)
+        got = lm.refine_motion(*args, rig, iters=iters)
+        ref, _ = lm._refine(*args, rig, iters, 3.0, 1e-3)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert len(graphs) == min(k + 1, lm.MAX_GRAPHS)
+        seen.append(next(reversed(graphs.values())))
+    assert len(set(map(id, seen))) == len(keys)
+    # the first key went; the second, met again, replays its own graph
+    rig, n, iters = keys[1]
+    lm.refine_motion(*_lm_inputs(rig, n, 9, "all", dev), rig, iters=iters)
+    assert next(reversed(graphs.values())) is seen[1]
+    assert seen[0] not in graphs.values() and len(graphs) == lm.MAX_GRAPHS
+
+
+def test_lm_graph_counts_its_accept_flags(dev, monkeypatch):
+    """Capturing counts nothing: after each replay with a recording open,
+    the first call's (which captures) too, the accept buffer's copy gives
+    exactly `iters` values, the eager run's."""
+    from front_end_tpu_torch.pipeline import telemetry
+    lm, graphs = _fresh_graphs(monkeypatch)
+    rig = _bench_rig("kitti00-vo-brief")
+    for k in range(3):
+        args = _lm_inputs(rig, 2304, 40 + k, "mixed", dev)
+        with telemetry.recording() as rec:
+            lm.refine_motion(*args, rig, iters=6)     # the first captures
+        _, accepts = lm._refine(*args, rig, 6, 3.0, 1e-3)
+        c = rec.counters()
+        assert [v for _, v in c["lm.accepted"]] == [float(a)
+                                                     for a in accepts]
+        assert [v for _, v in c["lm.graph"]] == [1.0]
+    assert len(graphs) == 1
+
+
+@pytest.mark.parametrize("case", ["vmap", "grad", "capture"])
+def test_lm_runs_eagerly_on_the_card_where_no_graph_serves(dev, monkeypatch,
+                                                           case):
+    """A vmapped call (the `extract-motion` study's), inputs that require
+    grad and a call inside another capture run `_refine` eagerly and
+    capture nothing; a capture keeps no count.  The outer capture replays
+    the eager kernels bit for bit; the batched and the differentiated
+    solves may round otherwise."""
+    from front_end_tpu_torch.pipeline import telemetry
+    lm, graphs = _fresh_graphs(monkeypatch)
+    rig = _bench_rig("kitti00-vo-brief")
+    H0, X, uvb, valid = _lm_inputs(rig, 2304, 7, "mixed", dev)
+    ref, _ = lm._refine(H0, X, uvb, valid, rig, 25, 3.0, 1e-3)
+    with telemetry.recording() as rec:
+        if case == "vmap":
+            H = torch.func.vmap(
+                lambda Xb: lm.refine_motion(H0, Xb, uvb, valid, rig,
+                                            iters=25).H)(X[None])
+            assert torch.allclose(H[0], ref.H, atol=1e-5)
+        elif case == "grad":
+            got = lm.refine_motion(H0, X.requires_grad_(True), uvb, valid,
+                                   rig, iters=25)
+            got.cost.backward()
+            assert bool(torch.isfinite(X.grad).all())
+            assert torch.allclose(got.H.detach(), ref.H, atol=1e-5)
+        else:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                lm._refine(H0, X, uvb, valid, rig, 25, 3.0, 1e-3)
+            outer = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(outer, stream=side):
+                got = lm.refine_motion(H0, X, uvb, valid, rig, iters=25)
+            outer.replay()
+            assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    c = rec.counters()
+    assert not graphs
+    assert {v for _, v in c.get("lm.graph", [])} <= {0.0}
+    if case == "capture":
+        assert c == {}

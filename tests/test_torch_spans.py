@@ -239,6 +239,62 @@ def test_refine_motion_counts_each_iteration(no_recording):
     assert float(res.cost) <= float(res.cost0)
 
 
+def _lm_problem(n=50, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    X = torch.rand(n, 3, generator=g) * torch.tensor([4.0, 3.0, 5.0]) \
+        + torch.tensor([-2.0, -1.5, 4.0])
+    uv = _rig().project4(X) + torch.rand(n, 4, generator=g)
+    return X, uv, torch.rand(n, generator=g) < 0.8
+
+
+@pytest.mark.parametrize("case", ["cpu", "vmap", "grad", "capture"])
+def test_refine_motion_runs_eagerly_where_no_graph_serves(case, monkeypatch,
+                                                          no_recording):
+    """CPU tensors, a `torch.func.vmap` (the study's), inputs that require
+    grad and a call inside a capture run `_refine` eagerly; `lm.graph` is
+    not counted on the CPU, and a capture keeps no count at all."""
+    rig, eye = _rig(), torch.eye(4)
+    X, uv, valid = _lm_problem()
+    calls = []
+    eager = lm._refine
+
+    def spy(*a):
+        calls.append(a[1].shape)
+        return eager(*a)
+
+    def no_graph(*a):
+        raise AssertionError("no graph can serve these inputs")
+
+    monkeypatch.setattr(lm, "_refine", spy)
+    monkeypatch.setattr(lm, "_replay", no_graph)
+    if case == "capture":
+        monkeypatch.setattr(lm, "_capturing", lambda: True)
+    if case == "grad":
+        X.requires_grad_(True)
+    with telemetry.recording() as rec:
+        if case == "vmap":
+            H = torch.func.vmap(
+                lambda Xb, uvb: lm.refine_motion(eye, Xb, uvb, valid, rig,
+                                                 iters=3).H)(
+                torch.stack([X, X + 0.1]), torch.stack([uv, uv]))
+            assert H.shape == (2, 4, 4)
+        else:
+            res = lm.refine_motion(eye, X, uv, valid, rig, iters=3)
+    assert calls == [X.shape]
+    c = rec.counters()
+    assert "lm.graph" not in c
+    kept = {"cpu": 3, "grad": 3, "vmap": 0, "capture": 0}[case]
+    assert len(c.get("lm.accepted", [])) == kept
+    if case == "grad":
+        res.cost.backward()
+        assert X.grad is not None and bool(torch.isfinite(X.grad).all())
+    elif case != "vmap":
+        ref, accepts = eager(eye, X, uv, valid, rig, 3, 3.0, 1e-3)
+        assert all(torch.equal(a, b) for a, b in zip(res, ref))
+        assert [v for _, v in c.get("lm.accepted", [])] == (
+            [float(a) for a in accepts] if kept else [])
+
+
 def test_counts_inside_vmap_are_not_kept(no_recording):
     def f(x):
         telemetry.count("t", x > 0)
