@@ -312,7 +312,8 @@ def _run_vo(args, group=None, dev=None):
         n = 1 if group is None else group.size()
         wcfg = window_vo.WindowVOConfig.create(
             cfg, window=args.window_size, ba_every=args.ba_every,
-            ba_max_landmarks=-(-1024 // n) * n, ba_group=group)
+            ba_iters=args.ba_iters, ba_max_landmarks=-(-1024 // n) * n,
+            ba_group=group)
         if args.max_age is not None:
             wcfg = wcfg.replace(tracker=dataclasses.replace(
                 wcfg.tracker, max_age=args.max_age))
@@ -529,6 +530,8 @@ def main(argv=None):
                    help="live window mode: tracker + windowed BA")
     v.add_argument("--window-size", type=int, default=3)
     v.add_argument("--ba-every", type=int, default=1)
+    v.add_argument("--ba-iters", type=int, default=6,
+                   help="LM iterations of each windowed BA solve")
     v.add_argument("--max-age", type=int, default=None,
                    help="landmark track-retention horizon in frames "
                         "(default 3)")

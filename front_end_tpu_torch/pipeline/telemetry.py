@@ -16,10 +16,11 @@ Spans and counters inside the program, which never wait for the device:
 
 - `span(name, frame=None)` marks a stage at the place it is called
   (`vo.step`, `vo.extract`, `vo.motion`, `vo.ransac`, `vo.lm`,
-  `window.step`, `window.tracker`, `window.ba`, `feed.wait`,
-  `feed.source`, `feed.put`, `io.decode`); `count(name, value)` keeps a
-  value the step already computed (`lm.accepted`, `lm.graph`,
-  `ba.accepted`, `ba.landmarks`).
+  `window.step`, `window.tracker`, `tracker.match`, `window.ba`,
+  `feed.wait`, `feed.source`, `feed.put`, `io.decode`); `count(name,
+  value)` keeps a value the step already computed (`lm.accepted`,
+  `lm.graph`, `ba.accepted`, `ba.landmarks`, `tracker.tracked`,
+  `tracker.new`, `window.ba_ran`).
 - Both are off unless a `recording()` is open: `span` then hands back
   one shared no-op context after one test of a module flag, and `count`
   returns.  Inside `recording()` a span stores its name, frame, parent,

@@ -91,8 +91,9 @@ def init_state(rig: StereoRig, cfg: WindowVOConfig, seed: int = 0,
 def window_vo_step(state: WindowVOState, left, right, rig: StereoRig,
                    cfg: WindowVOConfig, sampler: Callable | None = None):
     """One windowed-VO frame on the state's device.  Spans `window.step`
-    ⊃ `vo.step`, `window.tracker`, `window.ba`, frame
-    `state.vo.frame_idx`."""
+    ⊃ `vo.step`, `window.tracker` (⊃ `tracker.match`), `window.ba`, frame
+    `state.vo.frame_idx`; counter `window.ba_ran`, 1 on a frame whose BA
+    ran, else 0."""
     with telemetry.span("window.step", state.vo.frame_idx):
         return _window_vo_step(state, left, right, rig, cfg, sampler)
 
@@ -115,6 +116,7 @@ def _window_vo_step(state: WindowVOState, left, right, rig: StereoRig,
     # window holds min(frames ingested, W) valid poses
     W = cfg.tracker.window
     do_ba = win.frame_idx >= W and win.frame_idx % cfg.ba_every == 0
+    telemetry.count("window.ba_ran", do_ba)
     if do_ba:
         with telemetry.span("window.ba"):
             win, res = tracker_mod.run_window_ba(

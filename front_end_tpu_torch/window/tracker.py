@@ -133,7 +133,9 @@ def _put_words(dst, slot, words):
 def update(state: WindowState, kps: Keypoints, desc: Descriptors, X_cam,
            stereo_valid, uv4, pose_cur, cfg: TrackerConfig,
            rig: StereoRig) -> TrackUpdate:
-    """Ingest one frame's stereo features.
+    """Ingest one frame's stereo features.  Span `tracker.match` around
+    the association; counters `tracker.tracked` (the features associated
+    with a landmark) and `tracker.new` (the landmarks allocated).
 
     kps/desc/X_cam/stereo_valid/uv4: the frame's left features, stereo
     triangulations (camera frame) and stereo measurements (capacity N).
@@ -156,11 +158,13 @@ def update(state: WindowState, kps: Keypoints, desc: Descriptors, X_cam,
     zeros = torch.zeros(M, dtype=torch.float32, device=dev)
     lm_kps = Keypoints(xy=store.xy, score=zeros, angle=zeros, valid=recently)
     cur_valid = kps.valid & stereo_valid
-    m = match_mod.interframe_match(
-        kps.replace(valid=cur_valid), Descriptors(desc.bits, words, norm),
-        lm_kps, Descriptors(store.bits, store.packed, norm), box=cfg.roi_box,
-        ratio=cfg.lowe_ratio, norm=norm)
+    with telemetry.span("tracker.match"):
+        m = match_mod.interframe_match(
+            kps.replace(valid=cur_valid), Descriptors(desc.bits, words, norm),
+            lm_kps, Descriptors(store.bits, store.packed, norm),
+            box=cfg.roi_box, ratio=cfg.lowe_ratio, norm=norm)
     tracked = m.valid & cur_valid                          # (N,)
+    telemetry.count("tracker.tracked", tracked)
     slot_of_feature = torch.where(tracked, m.train_idx, -1)
 
     # ---- write tracked observations -----------------------------------
@@ -197,6 +201,7 @@ def update(state: WindowState, kps: Keypoints, desc: Descriptors, X_cam,
     n_free = stale.sum()
     rank = torch.cumsum(is_new, 0) - 1                     # (N,)
     can_alloc = is_new & (rank < n_free)
+    telemetry.count("tracker.new", can_alloc)
     # slot_for_rank[r] = the free slot of rank r; ranks at or beyond N and
     # occupied slots fall into a spare segment that is dropped
     seg = torch.where(stale, rank_slot, N).clamp(max=N)

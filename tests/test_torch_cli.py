@@ -184,6 +184,37 @@ def test_vo_window_runs(kitti_root, tmp_path, capsys):
     assert abs(poses[-1, 3] - t_true) < 0.05 * t_true
 
 
+@pytest.mark.parametrize("flags,every,iters,ran", [
+    ([], 1, 6, [0, 0, 1, 1]),
+    (["--ba-every", "2", "--ba-iters", "2"], 2, 2, [0, 0, 0, 1])],
+    ids=["default", "production"])
+def test_vo_window_ba_flags_reach_the_config(kitti_root, tmp_path,
+                                             monkeypatch, flags, every,
+                                             iters, ran):
+    """`--ba-every` and `--ba-iters` reach `WindowVOConfig`; without them
+    the BA solves 6 iterations on every frame from the third."""
+    from front_end_tpu_torch.pipeline import window_vo
+    root, _, _ = kitti_root
+    seen = []
+    step = window_vo.window_vo_step
+
+    def spy(state, left, right, rig, cfg, *a):
+        seen.append(cfg)
+        return step(state, left, right, rig, cfg, *a)
+
+    monkeypatch.setattr(window_vo, "window_vo_step", spy)
+    rec = str(tmp_path / "rec")
+    cli.main(["vo", "--kitti", root, "--frames", "4", "--device", "cpu",
+              "--window", "--record", rec, *flags])
+    assert len(seen) == 4
+    assert {(c.ba_every, c.ba_iters, c.tracker.window) for c in seen} == {
+        (every, iters, 3)}
+    _, counters, _ = telemetry.load_log(rec)
+    assert counters["window.ba_ran"].tolist() == ran
+    accepted = counters["ba.accepted"]
+    assert ((accepted >= 0) & (accepted <= iters)).all()
+
+
 def test_vo_euroc_rectified(tmp_path):
     root = str(tmp_path / "euroc")
     write_euroc(root, 3)

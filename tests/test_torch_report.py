@@ -196,8 +196,9 @@ def test_recorded_run_figures_carry_jax_series(recording, tmp_path,
     assert [os.path.basename(p)[:-4] for p in tfigs] == \
         [os.path.basename(p)[:-4] for p in jfigs]
     # frame time, counts, ba_rms_px and the program's counters
-    # (ba.accepted, ba.landmarks, lm.accepted)
-    assert len(tfigs) == 6
+    # (ba.accepted, ba.landmarks, lm.accepted, tracker.new,
+    # tracker.tracked, window.ba_ran)
+    assert len(tfigs) == 9
     for tp, jp in zip(tfigs, jfigs):
         _same_series(tp, mpl_series[os.path.basename(jp)])
 
@@ -237,7 +238,7 @@ def test_generate_report_end_to_end(tmp_path, frames, recording):
         jreport._study_table(jsweeps.load_study(study)))
     figs = [ln[ln.index("(") + 1:ln.index(")")]
             for ln in txt.splitlines() if ln.startswith("![")]
-    assert len(figs) == 4 + 2 + 6 + 2 + 2     # study, detect, rec, timing
+    assert len(figs) == 4 + 2 + 9 + 2 + 2     # study, detect, rec, timing
     for f in figs:
         assert f.endswith(".svg")
         ET.parse(out / f)

@@ -28,7 +28,8 @@ VO_TREE = {("vo.step", None), ("vo.extract", "vo.step"),
            ("vo.lm", "vo.motion")}
 WINDOW_TREE = (VO_TREE - {("vo.step", None)}) | {
     ("window.step", None), ("vo.step", "window.step"),
-    ("window.tracker", "window.step"), ("window.ba", "window.step")}
+    ("window.tracker", "window.step"), ("tracker.match", "window.tracker"),
+    ("window.ba", "window.step")}
 
 
 def _rig():
@@ -58,23 +59,24 @@ def _frames(k, seed=0):
     return np.stack(L), np.stack(R)
 
 
-def _path(windowed):
+def _path(windowed, **window_kw):
     """(step, initial state, config) of one of the two paths."""
     rig, cfg = _rig(), _cfg()
     if windowed:
         wcfg = window_vo.WindowVOConfig.create(cfg, window=3,
-                                               ba_max_landmarks=64)
+                                               ba_max_landmarks=64,
+                                               **window_kw)
         return (lambda s, a, b: window_vo.window_vo_step(s, a, b, rig, wcfg),
                 window_vo.init_state(rig, wcfg, seed=3, device="cpu"), wcfg)
     return (lambda s, a, b: vo.vo_step(s, a, b, rig, cfg),
             vo.init_state(rig, cfg, seed=3, device="cpu"), cfg)
 
 
-def _run(windowed):
-    step, state, _ = _path(windowed)
-    L, R = _frames(N_FRAMES)
+def _run(windowed, k=N_FRAMES, **window_kw):
+    step, state, _ = _path(windowed, **window_kw)
+    L, R = _frames(k)
     outs = []
-    for i in range(N_FRAMES):
+    for i in range(k):
         state, out = step(state, L[i], R[i])
         outs.append(out)
     return outs
@@ -220,8 +222,54 @@ def test_counters_reduce_to_at_most_iters_accepted(no_recording):
     telemetry.add_recording(log, rec, range(N_FRAMES))
     assert log.counters["ba.landmarks"][:2] == [0.0, 0.0]
     assert [r.label for r in log.frames[0]] == [
-        "frame", "vo.extract", "vo.lm", "vo.motion", "vo.ransac",
-        "vo.step", "window.step", "window.tracker"]
+        "frame", "tracker.match", "vo.extract", "vo.lm", "vo.motion",
+        "vo.ransac", "vo.step", "window.step", "window.tracker"]
+
+
+def _every_other(k):
+    """k windowed frames at the production schedule (W = 3, the BA every
+    other frame, 2 iterations) -> outputs."""
+    return _run(True, k, ba_every=2, ba_iters=2)
+
+
+def test_tracker_match_and_window_counters_at_ba_every_2(no_recording):
+    """`tracker.match` nests in `window.tracker` each frame; `window.ba_ran`
+    follows the schedule (frames ingested >= W and even: frames 3 and 5
+    of 6); `tracker.tracked` and `tracker.new` are the step's `n_tracked`
+    and `n_new`."""
+    k = 6
+    with telemetry.recording() as rec:
+        outs = _every_other(k)
+    match = [s for s in rec.spans if s.name == "tracker.match"]
+    assert [s.frame for s in match] == list(range(k))
+    assert {s.parent for s in match} == {"window.tracker"}
+    parents = {s.frame: s for s in rec.spans if s.name == "window.tracker"}
+    for s in match:
+        p = parents[s.frame]
+        assert p.t0_ns <= s.t0_ns <= s.t1_ns <= p.t1_ns
+    c = rec.counters()
+    assert c["window.ba_ran"] == [(f, float(f in (3, 5))) for f in range(k)]
+    assert [bool(o.ba_ran) for o in outs] == [f in (3, 5) for f in range(k)]
+    assert [f for f, _ in c["ba.landmarks"]] == [3, 5]
+    for name, field in (("tracker.tracked", "n_tracked"),
+                        ("tracker.new", "n_new")):
+        assert c[name] == [(f, float(getattr(o, field)))
+                           for f, o in enumerate(outs)], name
+    assert sum(v for _, v in c["tracker.tracked"][1:]) > 0
+    assert all(v > 0 for _, v in c["tracker.new"])
+
+
+def test_window_spans_and_counters_off_store_nothing(monkeypatch,
+                                                     no_recording):
+    """With no recording open the new span and counters store nothing:
+    no open span is made and no recording's stack is read."""
+    def stored(*a, **k):
+        raise AssertionError("recorded with the recording off")
+    monkeypatch.setattr(telemetry._Open, "__init__", stored)
+    monkeypatch.setattr(telemetry.Recording, "_stack", stored)
+    assert telemetry.span("tracker.match") is telemetry._OFF
+    outs = _every_other(4)
+    assert [bool(o.ba_ran) for o in outs] == [False, False, False, True]
 
 
 def test_refine_motion_counts_each_iteration(no_recording):
