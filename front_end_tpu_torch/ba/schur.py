@@ -156,7 +156,8 @@ def ba_solve(poses0, X0, meas, vis, rig: StereoRig, *, iters: int = 12,
     *ne, cost = _normal_equations(poses, X, meas, vis_w, rig, huber_px,
                                   total)
     cost0 = cost
-    lam = torch.as_tensor(lam0, dtype=torch.float32, device=X0.device)
+    # filled on the device: a copy from the host cannot be graph-captured
+    lam = torch.full((), lam0, dtype=torch.float32, device=X0.device)
 
     for _ in range(iters):
         Hpp, Hpl, Hll, bp, bl = ne

@@ -19,8 +19,8 @@ Spans and counters inside the program, which never wait for the device:
   `window.step`, `window.tracker`, `tracker.match`, `window.ba`,
   `feed.wait`, `feed.source`, `feed.put`, `io.decode`); `count(name,
   value)` keeps a value the step already computed (`lm.accepted`,
-  `lm.graph`, `ba.accepted`, `ba.landmarks`, `tracker.tracked`,
-  `tracker.new`, `window.ba_ran`).
+  `lm.graph`, `ba.accepted`, `ba.landmarks`, `ba.graph`,
+  `tracker.tracked`, `tracker.new`, `window.ba_ran`).
 - Both are off unless a `recording()` is open: `span` then hands back
   one shared no-op context after one test of a module flag, and `count`
   returns.  Inside `recording()` a span stores its name, frame, parent,
@@ -35,6 +35,9 @@ Spans and counters inside the program, which never wait for the device:
   reduces the values on the host when they are read.
 - A span without a frame takes its parent's: the steps pass
   `state.frame_idx`, `DeviceFeed` numbers its items in order.
+- `diverted()` hands the counts a thread makes inside it to a list in
+  place of any recording: a CUDA graph's capture keeps the tensors it
+  counted, whose values exist only at each replay.
 """
 from __future__ import annotations
 
@@ -217,6 +220,7 @@ class _Open:
 _RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
 _OFF = contextlib.nullcontext()
 _active: Recording | None = None        # the open recording, if any
+_sinks: dict = {}       # thread id -> the list its counts go to (diverted)
 
 
 def span(name: str, frame: int | None = None):
@@ -230,8 +234,14 @@ def count(name: str, value) -> None:
     """Keep `value` (a device scalar or mask the caller computed, or a
     number) under `name` for the innermost open span's frame; a no-op
     unless a recording is open, or inside a `torch.func` transform (a
-    study's vmapped solve), whose tensors do not outlive it."""
+    study's vmapped solve), whose tensors do not outlive it.  Inside
+    `diverted()` it goes to that list, recording or not."""
     rec = _active
+    if _sinks:
+        sink = _sinks.get(threading.get_ident())
+        if sink is not None:
+            sink.append((name, value))
+            return
     if rec is None or (isinstance(value, torch.Tensor) and
                        torch._C._functorch.is_functorch_wrapped_tensor(
                            value)):
@@ -243,6 +253,22 @@ def count(name: str, value) -> None:
 def is_recording() -> bool:
     """Whether a `recording()` is open."""
     return _active is not None
+
+
+@contextlib.contextmanager
+def diverted():
+    """The counts this thread makes inside the block, as a list of (name,
+    value) in the order counted, kept out of any recording."""
+    tid = threading.get_ident()
+    outer = _sinks.get(tid)
+    sink = _sinks[tid] = []
+    try:
+        yield sink
+    finally:
+        if outer is None:
+            del _sinks[tid]
+        else:
+            _sinks[tid] = outer
 
 
 @contextlib.contextmanager

@@ -20,9 +20,25 @@ JAX package's slot for slot.  The frame index rides on the host (a Python
 int), so callers can schedule the windowed BA without waiting on the
 device; the number of valid window poses is min(frame_idx, W) by
 construction.
+
+The windowed BA is several hundred small kernels an iteration, each
+dispatched from Python.  On the card `run_window_ba` therefore replays it
+as one CUDA graph, as `motion/lm.py` does the LM: `_window_ba`, the
+solve's arithmetic for every path (the outlier gate, the top-K
+selection, `schur.ba_solve` and the store write), is captured once per
+key (device, the shapes and dtypes of the store's and window's tensors
+it reads, iters, huber_px, min_obs, outlier_gate_px, max_landmarks,
+rig) on static inputs; a call copies its tensors in, replays, and
+returns copies of the static outputs, bit for bit what `_window_ba`
+returns eagerly.  CPU tensors, a process group (the sharded solve and
+its collectives), tensors that require grad or sit under a `torch.func`
+transform, and calls made while the current stream is being captured
+run `_window_ba` eagerly.
 """
 from __future__ import annotations
 
+import contextlib
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -245,7 +261,6 @@ def tracked_pairs(state_prev: WindowState, upd: TrackUpdate, X_cam_cur):
     return state_prev.store.Xw[slot], X_cam_cur, upd.matches >= 0
 
 
-@f32_precision
 def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
                   huber_px: float = 3.0, min_obs: int = 2,
                   outlier_gate_px: float | None = 8.0,
@@ -269,17 +284,57 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
     landmark-sharded (`ba/distributed.py`); one `all_gather` gives every
     rank the refined landmarks back before the store write, where the JAX
     package gathers through its `out_specs`.  K must be below the capacity
-    and divisible by the group's size."""
+    and divisible by the group's size.
+
+    Counts `ba.landmarks` (the landmarks solved), one `ba.accepted` (0/1)
+    an iteration and, for CUDA inputs, `ba.graph`: 1 for a call served by
+    a graph replay, 0 for one run eagerly.  Nothing is counted while the
+    stream is being captured."""
     store = state.store
-    obs_count = store.vis.sum(1)
-    use = store.valid & (obs_count >= min_obs)
-    vis = store.vis & use[:, None] & state.pose_valid[None, :]
+    args = (store.Xw, store.meas, store.vis, store.valid, store.track_len,
+            state.poses, state.pose_valid)
+    opts = (iters, huber_px, min_obs, outlier_gate_px, max_landmarks)
+    capturing = _capturing()
+    if group is None and store.Xw.is_cuda and not capturing and not any(
+            t.requires_grad or _wrapped(t) for t in args):
+        Xw, res = _replay(args, rig, opts)
+        served = 1
+    else:
+        # a capture's tensors hold values only at replay: count none
+        with telemetry.diverted() if capturing else contextlib.nullcontext():
+            Xw, res = _window_ba(*args, rig, *opts, group)
+        served = 0
+    if store.Xw.is_cuda and not capturing:
+        telemetry.count("ba.graph", served)
+    return state._replace(store=store._replace(Xw=Xw), poses=res.poses), res
+
+
+def _capturing() -> bool:
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _wrapped(t) -> bool:
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+@f32_precision
+def _window_ba(Xw, meas, seen, valid, track_len, poses, pose_valid,
+               rig: StereoRig, iters: int, huber_px: float, min_obs: int,
+               outlier_gate_px: float | None, max_landmarks: int | None,
+               group=None):
+    """The windowed BA, run eagerly, on the store's positions `Xw`,
+    measurements `meas`, visibility `seen`, `valid` and `track_len`, and
+    the window's `poses` and `pose_valid`: (the store's new positions,
+    BAResult)."""
+    obs_count = seen.sum(1)
+    use = valid & (obs_count >= min_obs)
+    vis = seen & use[:, None] & pose_valid[None, :]
     if outlier_gate_px is not None:
-        r = factors.residual(state.poses[None, :], store.Xw[:, None, :],
-                             store.meas, rig)
+        r = factors.residual(poses[None, :], Xw[:, None, :], meas, rig)
         vis = vis & ((r * r).sum(-1) < outlier_gate_px ** 2)
 
-    M = store.Xw.shape[0]
+    M = Xw.shape[0]
     if group is not None and (max_landmarks is None or max_landmarks >= M):
         raise ValueError(
             "sharded window BA runs on the compacted problem: set "
@@ -289,14 +344,13 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
         # integer-valued score: observation count, then track length
         score = torch.where(
             use, obs_count.to(torch.float32) * 1e4
-            + store.track_len.clamp(max=9999).to(torch.float32) + 1.0,
+            + track_len.clamp(max=9999).to(torch.float32) + 1.0,
             torch.zeros((), device=use.device))
         sel = topk_select(score, max_landmarks)
         telemetry.count("ba.landmarks", sel.valid)
-        Xk, meask, visk = (compact_rows(sel, a)
-                           for a in (store.Xw, store.meas, vis))
+        Xk, meask, visk = (compact_rows(sel, a) for a in (Xw, meas, vis))
         if group is None:
-            res = schur.ba_solve(state.poses, Xk, meask, visk, rig,
+            res = schur.ba_solve(poses, Xk, meask, visk, rig,
                                  iters=iters, huber_px=huber_px)
             Xk = res.landmarks
         else:
@@ -305,17 +359,71 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
                 raise ValueError(f"max_landmarks={max_landmarks} not "
                                  f"divisible by the group's size {n}")
             res = distributed.ba_solve_sharded(
-                group, state.poses,
+                group, poses,
                 *(distributed.local_block(a, r, n) for a in (Xk, meask,
                                                              visk)),
                 rig, iters=iters, huber_px=huber_px)
             Xk = distributed.all_gather(res.landmarks, group)
-        Xw = put_rows(store.Xw, torch.where(sel.valid, sel.idx, M), Xk)
-        return state._replace(store=store._replace(Xw=Xw),
-                              poses=res.poses), res
+        return put_rows(Xw, torch.where(sel.valid, sel.idx, M), Xk), res
 
     telemetry.count("ba.landmarks", use)
-    res = schur.ba_solve(state.poses, store.Xw, store.meas, vis, rig,
-                         iters=iters, huber_px=huber_px)
-    Xw = torch.where(use[:, None], res.landmarks, store.Xw)
-    return state._replace(store=store._replace(Xw=Xw), poses=res.poses), res
+    res = schur.ba_solve(poses, Xw, meas, vis, rig, iters=iters,
+                         huber_px=huber_px)
+    return torch.where(use[:, None], res.landmarks, Xw), res
+
+
+class _Captured:
+    """`_window_ba` captured as one CUDA graph on static inputs.  A replay
+    refreshes them from the call's tensors, and hands back copies of the
+    static outputs, which the next replay overwrites.  The counts made
+    while capturing are stacked by name into static tensors, which a
+    replay counts while a recording is open."""
+
+    def __init__(self, args, rig, opts):
+        self.inputs = [t.detach().clone(memory_format=torch.contiguous_format)
+                       for t in args]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        # one eager run creates the libraries' handles and work space (and
+        # the sort's) on the capture's stream, which the capture may not
+        with torch.cuda.stream(side), telemetry.diverted():
+            _window_ba(*self.inputs, rig, *opts)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: a feed thread's calls on its own stream stay legal
+        with telemetry.diverted() as counts, torch.cuda.graph(
+                self.graph, stream=side, capture_error_mode="thread_local"):
+            self.Xw, self.res = _window_ba(*self.inputs, rig, *opts)
+            by_name: dict = {}
+            for name, value in counts:
+                by_name.setdefault(name, []).append(value)
+            self.counts = {name: torch.stack(vs)
+                           for name, vs in by_name.items()}
+
+    def replay(self, args) -> tuple:
+        for static, t in zip(self.inputs, args):
+            static.copy_(t)
+        self.graph.replay()
+        if telemetry.is_recording():
+            for name, values in self.counts.items():
+                for v in values.clone().unbind():
+                    telemetry.count(name, v)
+        return self.Xw.clone(), schur.BAResult(
+            *(t.clone() for t in self.res))
+
+
+MAX_GRAPHS = 4      # captured keys kept; a benchmark cell needs one
+_graphs: OrderedDict = OrderedDict()    # key -> _Captured, oldest first
+
+
+def _replay(args, rig, opts):
+    dev = args[0].device
+    key = (dev, tuple((t.shape, t.dtype) for t in args), opts, rig)
+    with torch.cuda.device(dev):
+        g = _graphs.get(key)
+        if g is None:
+            g = _graphs[key] = _Captured(args, rig, opts)
+            while len(_graphs) > MAX_GRAPHS:
+                _graphs.popitem(last=False)
+        else:
+            _graphs.move_to_end(key)
+        return g.replay(args)

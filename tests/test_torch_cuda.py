@@ -925,3 +925,168 @@ def test_lm_runs_eagerly_on_the_card_where_no_graph_serves(dev, monkeypatch,
     assert {v for _, v in c.get("lm.graph", [])} <= {0.0}
     if case == "capture":
         assert c == {}
+
+
+def _fresh_ba_graphs(monkeypatch):
+    from collections import OrderedDict
+
+    from front_end_tpu_torch.window import tracker
+    graphs = OrderedDict()
+    monkeypatch.setattr(tracker, "_graphs", graphs)
+    return tracker, graphs
+
+
+def _ba_equal(got, ref):
+    """`run_window_ba`'s (state, BAResult) against the eager body's (Xw,
+    BAResult), bit for bit."""
+    (state, res), (Xw, ref_res) = got, ref
+    return (torch.equal(state.store.Xw, Xw)
+            and torch.equal(state.poses, ref_res.poses)
+            and all(torch.equal(a, b) for a, b in zip(res, ref_res)))
+
+
+# the windowed cells' BA: (rig's configuration, iterations)
+BA_CELLS = [("euroc-mh01-window-surfext", 6), ("kitti00-window-brief", 2)]
+
+
+@pytest.mark.parametrize("K", [1024, None], ids=["compacted", "full"])
+@pytest.mark.parametrize("config,iters", BA_CELLS,
+                         ids=[c for c, _ in BA_CELLS])
+def test_ba_graph_replays_equal_the_eager_body(dev, monkeypatch, config,
+                                               iters, K):
+    """Successive calls with fresh stores of 4608 slots (W = 3; K = 1024
+    of them, or the full grid) replay one graph, and each replay's store
+    positions, poses, cost, cost0, rms and landmarks equal `_window_ba`
+    run eagerly on the same inputs bit for bit: the static inputs are
+    refreshed.  What a call returned stays as it was after later
+    replays."""
+    from _window_ba_problem import eager, window_state
+    from front_end_tpu_torch.pipeline import telemetry
+    tracker, graphs = _fresh_ba_graphs(monkeypatch)
+    rig = _bench_rig(config)
+    kept = []
+    with telemetry.recording() as rec:
+        for k in range(4):
+            st = window_state(rig, 4608, seed=10 * iters + k, device=dev)
+            got = tracker.run_window_ba(st, rig, iters=iters,
+                                        max_landmarks=K)
+            with telemetry.diverted():          # the reference's counts
+                ref = eager(st, rig, iters=iters, max_landmarks=K)
+            assert _ba_equal(got, ref)
+            state, res = got
+            assert float(res.cost) < float(res.cost0)
+            assert bool(torch.isfinite(state.store.Xw).all())
+            kept.append((got, (state.store.Xw.clone(),
+                               type(res)(*(t.clone() for t in res)))))
+    assert len(graphs) == 1
+    for got, copy in kept:
+        assert _ba_equal(got, copy)
+    c = rec.counters()
+    assert [v for _, v in c["ba.graph"]] == [1.0] * 4
+    assert len(c["ba.accepted"]) == 4 * iters
+    assert len(c["ba.landmarks"]) == 4
+
+
+def test_ba_graph_counts_equal_the_eager_run(dev, monkeypatch):
+    """Capturing counts nothing: after each replay with a recording open,
+    the first call's (which captures) too, `ba.accepted` and
+    `ba.landmarks` are the eager body's, value for value."""
+    from _window_ba_problem import eager, window_state
+    from front_end_tpu_torch.pipeline import telemetry
+    tracker, graphs = _fresh_ba_graphs(monkeypatch)
+    rig = _bench_rig("euroc-mh01-window-surfext")
+    for k in range(3):
+        st = window_state(rig, 4608, seed=70 + k, device=dev)
+        with telemetry.recording() as rec:
+            tracker.run_window_ba(st, rig, iters=6, max_landmarks=1024)
+        with telemetry.recording() as ref:
+            eager(st, rig, iters=6, max_landmarks=1024)
+        c = rec.counters()
+        assert [v for _, v in c.pop("ba.graph")] == [1.0]
+        assert c == ref.counters()
+    assert len(graphs) == 1
+
+
+def test_ba_graph_keys_and_bound(dev, monkeypatch):
+    """A new K, iters, store size or rig captures a new graph; a key met
+    again replays its graph; past `MAX_GRAPHS` keys the least recently
+    used goes."""
+    from _window_ba_problem import eager, window_state
+    tracker, graphs = _fresh_ba_graphs(monkeypatch)
+    euroc, kitti = (_bench_rig(c) for c, _ in BA_CELLS)
+    keys = [(euroc, 4608, 6, 1024), (kitti, 4608, 2, 1024),
+            (euroc, 4608, 6, None), (euroc, 2304, 6, 1024),
+            (kitti, 4608, 6, 1024)]
+    seen = []
+    for k, (rig, M, iters, K) in enumerate(keys):
+        st = window_state(rig, M, seed=k, device=dev)
+        got = tracker.run_window_ba(st, rig, iters=iters, max_landmarks=K)
+        assert _ba_equal(got, eager(st, rig, iters=iters, max_landmarks=K))
+        assert len(graphs) == min(k + 1, tracker.MAX_GRAPHS)
+        seen.append(next(reversed(graphs.values())))
+    assert len(set(map(id, seen))) == len(keys)
+    # the first key went; the second, met again, replays its own graph
+    rig, M, iters, K = keys[1]
+    st = window_state(rig, M, seed=9, device=dev)
+    got = tracker.run_window_ba(st, rig, iters=iters, max_landmarks=K)
+    assert _ba_equal(got, eager(st, rig, iters=iters, max_landmarks=K))
+    assert next(reversed(graphs.values())) is seen[1]
+    assert seen[0] not in graphs.values()
+    assert len(graphs) == tracker.MAX_GRAPHS
+
+
+@pytest.mark.parametrize("case", ["capture", "grad", "group"])
+def test_ba_runs_eagerly_on_the_card_where_no_graph_serves(dev, monkeypatch,
+                                                           tmp_path, case):
+    """A call inside another capture, inputs that require grad and a
+    process group (one gloo rank, its tensors on the card) run the eager
+    body and capture nothing; a capture keeps no count.  The outer
+    capture replays the eager kernels bit for bit; the differentiated
+    solve may round otherwise, the group's sums go through the host."""
+    import torch.distributed as dist
+    from _window_ba_problem import eager, window_state
+    from front_end_tpu_torch.pipeline import telemetry
+    tracker, graphs = _fresh_ba_graphs(monkeypatch)
+    rig = _bench_rig("euroc-mh01-window-surfext")
+    st = window_state(rig, 4608, seed=3, device=dev)
+    ref = eager(st, rig, iters=6, max_landmarks=1024)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager(st, rig, iters=6, max_landmarks=1024)
+    with telemetry.recording() as rec:
+        if case == "capture":
+            outer = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(outer, stream=side):
+                got = tracker.run_window_ba(st, rig, iters=6,
+                                            max_landmarks=1024)
+            outer.replay()
+            torch.cuda.synchronize()
+            assert _ba_equal(got, ref)
+        elif case == "grad":
+            Xw = st.store.Xw.clone().requires_grad_(True)
+            state, res = tracker.run_window_ba(
+                st._replace(store=st.store._replace(Xw=Xw)), rig, iters=6,
+                max_landmarks=1024)
+            res.cost.backward()
+            assert bool(torch.isfinite(Xw.grad).all())
+            assert torch.allclose(state.poses.detach(), ref[1].poses,
+                                  atol=1e-5)
+        else:
+            dist.init_process_group("gloo",
+                                    init_method=f"file://{tmp_path}/s",
+                                    world_size=1, rank=0)
+            try:
+                state, res = tracker.run_window_ba(
+                    st, rig, iters=6, max_landmarks=1024,
+                    group=dist.group.WORLD)
+            finally:
+                dist.destroy_process_group()
+            assert torch.allclose(state.poses, ref[1].poses, atol=1e-5)
+    c = rec.counters()
+    assert not graphs
+    if case == "capture":
+        assert c == {}
+    else:
+        assert [v for _, v in c["ba.graph"]] == [0.0]
+        assert len(c["ba.accepted"]) == 6
