@@ -145,12 +145,15 @@ Phases, each of which exits non-zero on failure:
      line as its device, both rendered-world ATEs under `ATE_SHARE` of
      the corridor's path, `motion_ok_last` true, the grid, keypoint BRIEF
      and match kernels launched exactly as often as its frames and stage
-     calls give (`bench_launches`); then `bench_window` over its whole
-     grid at `BENCH_WINDOW_PASSES` pass (its default is 4, cut for time):
-     both tables, every fps above 0, every ATE under `ATE_SHARE` of the
-     path, launches as `bench_window_launches` gives;
+     calls give (`bench_launches`); then `window_vo_step` at every
+     (window length, `ba_every`, BA iterations) of `WINDOW_POINTS`, on
+     `WINDOW_KITTI_FRAMES` synthetic KITTI-size frames and the 40-frame
+     rendered corridor, inside a telemetry recording: every BA served by
+     its CUDA graph (`ba.graph` 1 on each frame `window.ba_ran` counts),
+     `ba.accepted` counted once an iteration, the rendered-world ATE under
+     `ATE_SHARE` of the path, launches as `window_launches` gives;
   10. a JSON line describing every kernel (`launches_by_path` with `cli`,
-     `report`, `explore`, `bench` and `bench_window` entries), the card
+     `report`, `explore`, `bench` and `window` entries), the card
      line, and as the last line {"ok": true, "device": {...}}.
 It imports nothing of JAX or of the JAX package.
 """
@@ -267,7 +270,12 @@ BENCH_KEYS = {
         "extract_total", "motion_ransac_lm", "tracker_ba_overhead",
         "note"))}
 ATE_SHARE = 0.03          # of the rendered corridor's path, both packages'
-BENCH_WINDOW_PASSES = 1   # the window sweep's passes (its default is 4)
+# (window length, ba_every, BA iterations) of phase 9's window sweep: the
+# (ba_every, iters) grid at W = 3, then W = 4, 6, 8 at the benchmark's
+# operating point; each point captures its own BA graphs
+WINDOW_POINTS = ((3, 1, 2), (3, 1, 4), (3, 2, 2), (3, 2, 4), (3, 4, 2),
+                 (3, 4, 4), (4, 2, 2), (6, 2, 2), (8, 2, 2))
+WINDOW_KITTI_FRAMES = 12  # synthetic KITTI-size frames a point
 
 
 def fail(msg: str) -> None:
@@ -638,8 +646,8 @@ def cli_phase(torch, dev, card, lefts, rights, rig, cfg, poses_mem,
     check("ATE RMSE" in text, "cli vo printed no ATE")
     stages, counters, meta = telemetry.load_log(rec)
     check(stages["frame"].shape == (n,) and set(counters) == {
-        "n_detect_l", "n_stereo", "n_tracks", "n_inliers"},
-        f"recording {list(stages)} {list(counters)}")
+        "n_detect_l", "n_stereo", "n_tracks", "n_inliers", "lm.accepted",
+        "lm.graph"}, f"recording {list(stages)} {list(counters)}")
     check(meta["platform"] == torch.cuda.get_device_name(dev),
           f"recorded platform {meta['platform']}")
     rec_ms = float(np.median(stages["frame"])) * 1e3
@@ -1125,23 +1133,9 @@ def bench_launches(F: int, P: int, C: int, R: int) -> dict:
             "match_reduce": 2 * frames + win_frames + extract + motion}
 
 
-def bench_window_launches(points: int, F: int, P: int, R: int) -> dict:
-    """Kernel launches of `bench_window`: per point 3 warm-up frames and P
-    passes of F windowed KITTI frames and R windowed rendered frames, and R
-    plain rendered frames once."""
-    win_frames = points * (3 + F * P + R)
-    return {"fast_grid": win_frames + R, "brief_keypoints": win_frames + R,
-            "match_reduce": 3 * win_frames + 2 * R}
-
-
 def bench_phase(torch, card, reset_counts, read_counts) -> dict:
-    """Phase 9: `cli bench` at its defaults and `bench_window` over its
-    whole grid at `BENCH_WINDOW_PASSES` passes, launch counters reset just
-    before and read just after each.  Returns the launches of both."""
-    import contextlib
-    import io
-
-    from front_end_tpu_torch import bench_window
+    """Phase 9: `cli bench` at its defaults, launch counters reset just
+    before and read just after.  Returns its launches."""
     from front_end_tpu_torch.sim import render
 
     gt = render.corridor_trajectory(40)
@@ -1184,51 +1178,72 @@ def bench_phase(torch, card, reset_counts, read_counts) -> dict:
           f"{d['ate_rendered_world_m']} / "
           f"{d['ate_rendered_world_windowed_m']} m of a {path:.3f} m path; "
           f"launches {counts}; {bench_s:.1f} s [{card}]", flush=True)
+    return {"bench": counts}
 
-    out = io.StringIO()
+
+def window_launches(points: int, frames: int) -> dict:
+    """Kernel launches of the window sweep: per point `frames` windowed
+    frames, each 1 grid, 1 keypoint BRIEF and 3 match launches."""
+    n = points * frames
+    return {"fast_grid": n, "brief_keypoints": n, "match_reduce": 3 * n}
+
+
+def window_phase(torch, card, reset_counts, read_counts) -> dict:
+    """Phase 9, second half: `window_vo_step` at every point of
+    `WINDOW_POINTS` on synthetic KITTI-size frames and on the rendered
+    corridor, launch counters reset just before and read just after.
+    Returns its launches."""
+    from front_end_tpu_torch import bench
+    from front_end_tpu_torch.eval import metrics
+    from front_end_tpu_torch.pipeline import telemetry, window_vo
+    from front_end_tpu_torch.sim.sequence import make_sequence
+
+    dev = torch.device("cuda")
+    h, w = bench.parse_size(bench.KITTI_SIZE)
+    rig, cfg = bench.bench_rig(h, w), bench.vo_config()
+    lefts, rights = make_sequence(WINDOW_KITTI_FRAMES, h=h, w=w, seed=5)
+    L = [torch.as_tensor(x).to(dev) for x in lefts]
+    R = [torch.as_tensor(x).to(dev) for x in rights]
+    rrig, gt, rl, rr = bench.rendered_world(40)
+    rcfg = bench.rendered_config()
+    path = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1).sum())
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        rc = bench_window.main(["--passes", str(BENCH_WINDOW_PASSES)])
+    rows = []
+    for W, every, iters in WINDOW_POINTS:
+        with telemetry.recording() as rec:
+            for c, rg, ls, rs in ((cfg, rig, L, R), (rcfg, rrig, rl, rr)):
+                wc = window_vo.WindowVOConfig.create(
+                    c, window=W, ba_every=every, ba_iters=iters)
+                traj = bench.trajectory(
+                    lambda s, left, right, rg=rg, wc=wc:
+                        window_vo.window_vo_step(s, left, right, rg, wc),
+                    window_vo.init_state(rg, wc, device=dev), ls, rs,
+                    lambda o: o.frame.pose)
+        counters = rec.counters()
+        ran = int(sum(v for _, v in counters["window.ba_ran"]))
+        served = [v for _, v in counters.get("ba.graph", [])]
+        steps = len(counters.get("ba.accepted", []))
+        check(ran > 0 and served == [1.0] * ran and steps == iters * ran,
+              f"window (W {W}, ba_every {every}, iters {iters}): {ran} BA "
+              f"frames, ba.graph {served}, {steps} BA iterations")
+        ate = metrics.ate_rmse(traj[:, :3, 3], gt[:, :3, 3])
+        check(np.isfinite(ate) and ate < ATE_SHARE * path,
+              f"window (W {W}, ba_every {every}, iters {iters}): ATE "
+              f"{ate} not under {ATE_SHARE:.0%} of the {path:.3f} m path")
+        rows.append(f"({W}, {every}, {iters}) {ran} BA {ate:.4f} m")
     torch.cuda.synchronize()
-    window_counts = read_counts()
-    check(rc == 0, f"bench_window returned {rc}")
-    want = dict(bench_window_launches(
-        len(bench_window.GRID) + len(bench_window.WINDOWS), 20,
-        BENCH_WINDOW_PASSES, 40), brief_planes=0, fast_detect=0,
-        fast_margins=0)
-    check(window_counts == want,
-          f"bench_window launches {window_counts}, want {want}")
-    lines = out.getvalue().splitlines()
-
-    def table(header, n):
-        check(header in lines, f"bench_window printed no {header!r}")
-        i = lines.index(header)
-        return [[c.strip() for c in ln.split("|")[1:-1]]
-                for ln in lines[i + 2:i + 2 + n]]
-
-    tab = table("| mode | ba_every | iters | fps/chip | ATE (m) |",
-                1 + len(bench_window.GRID))
-    wins = table("| window W | fps/chip | ATE (m) | comm/iter (B) |",
-                 len(bench_window.WINDOWS))
-    check([(int(r[1]), int(r[2])) for r in tab[1:]]
-          == list(bench_window.GRID)
-          and [int(r[0]) for r in wins] == list(bench_window.WINDOWS),
-          f"bench_window rows {tab}, {wins}")
-    ates = [tab[0][4]] + [r[4] for r in tab[1:]] + [r[2] for r in wins]
-    fpss = [r[3] for r in tab[1:]] + [r[1] for r in wins]
-    check(all(np.isfinite(float(a)) and float(a) < ATE_SHARE * path
-              for a in ates) and all(float(f) > 0 for f in fpss),
-          f"bench_window fps {fpss}, ATE {ates}")
-    print(f"bench_window ({BENCH_WINDOW_PASSES} pass): plain ATE "
-          f"{tab[0][4]} m; (ba_every, iters) fps ATE: "
-          + ", ".join(f"({r[1]}, {r[2]}) {r[3]} {r[4]}" for r in tab[1:])
-          + "; W fps ATE at (2, 2): "
-          + ", ".join(f"{r[0]} {r[1]} {r[2]}" for r in wins)
-          + f"; launches {window_counts}; "
-          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
-    return {"bench": counts, "bench_window": window_counts}
+    counts = read_counts()
+    want = dict(window_launches(len(WINDOW_POINTS),
+                                WINDOW_KITTI_FRAMES + len(rl)),
+                brief_planes=0, fast_detect=0, fast_margins=0)
+    check(counts == want, f"window launches {counts}, want {want}")
+    print("window (W, ba_every, iters) BA frames, rendered ATE: "
+          + "; ".join(rows) + f"; every BA a graph replay; launches "
+          f"{counts}; {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return {"window": counts}
 
 
 def main() -> int:
@@ -2447,6 +2462,7 @@ def main() -> int:
         mk["ms_stereo_4w"], mk["plain_ms_stereo_4w"] = m4["ms"], m4["plain"]
         # ---- phase 9: the benchmark ----------------------------------
         by_path.update(bench_phase(torch, card, reset_counts, read_counts))
+        by_path.update(window_phase(torch, card, reset_counts, read_counts))
 
     line = []
     for k in kernels:
@@ -2467,6 +2483,8 @@ def main() -> int:
                                      "match_reduce")),
                         ("bench", ("fast_grid", "brief_keypoints",
                                    "match_reduce")),
+                        ("window", ("fast_grid", "brief_keypoints",
+                                    "match_reduce")),
                         ("explore", ("fast_margins",))):
         for name in names:
             check(by_path[path][name] > 0, f"{name} not launched by {path}")

@@ -8,7 +8,7 @@ Prints ONE JSON line last, with the keys and meanings of the JAX
 package's benchmark line:
 
   {"metric": "kitti_stereo_vo_frames_per_s_per_chip", "value": fps,
-   "unit": "frames/s", "vs_baseline": fps / 200, "detail": {...}}
+   "unit": "frames/s", "vs_baseline": value / 200, "detail": {...}}
 
 200 frames/s is the north star of `BASELINE.json`.  The headline is
 `vo_step` over 40 synthetic KITTI-size pairs (`sim/sequence.py`) staged on
@@ -53,6 +53,7 @@ from front_end_tpu_torch.utils.precision import pinned_f32, resolve_device
 
 BASELINE_FPS = 200.0
 KITTI_SIZE = "376x1241"
+WARM_FRAMES = 2         # before each timed loop, as the JAX benchmark
 # the kernels of the VO and windowed paths, built before any warm-up
 PATH_KERNELS = ("fast_grid", "brief_keypoints", "match_reduce")
 
@@ -75,13 +76,11 @@ def rendered_config() -> vo.VOConfig:
         max_disparity=60.0, min_track_inliers=10)
 
 
-def operating_point(cfg: vo.VOConfig, window: int = 3, ba_every: int = 2,
-                    ba_iters: int = 2) -> window_vo.WindowVOConfig:
+def operating_point(cfg: vo.VOConfig) -> window_vo.WindowVOConfig:
     """The windowed pipeline at the JAX benchmark's operating point, not
     `WindowVOConfig.create`'s defaults (`ba_every=1`, `ba_iters=6`)."""
-    return window_vo.WindowVOConfig.create(cfg, window=window,
-                                           ba_every=ba_every,
-                                           ba_iters=ba_iters)
+    return window_vo.WindowVOConfig.create(cfg, window=3, ba_every=2,
+                                           ba_iters=2)
 
 
 def configs() -> dict:
@@ -144,10 +143,11 @@ def build_kernels(dev: torch.device) -> None:
         _build.build(*PATH_KERNELS)
 
 
-def timed_loop(step, state, L, R, passes: int, warm: int, dev):
-    """`warm` frames (the first ones, cycled), then `passes` passes over
-    the frames carrying the state -> (fps, seconds, state, last output)."""
-    for t in range(warm):
+def timed_loop(step, state, L, R, passes: int, dev):
+    """`WARM_FRAMES` frames (the first ones, cycled), then `passes` passes
+    over the frames carrying the state -> (fps, seconds, state, last
+    output)."""
+    for t in range(WARM_FRAMES):
         state, out = step(state, L[t % len(L)], R[t % len(R)])
     sync(dev)
     t0 = time.perf_counter()
@@ -253,24 +253,19 @@ def stage_ms(fn, n: int, dev) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def add_depth_arguments(p: argparse.ArgumentParser, frames: int,
-                        passes: int) -> None:
-    """The arguments this benchmark and `bench_window` share; the depth
-    ones default to the JAX scripts' values."""
+def add_arguments(p: argparse.ArgumentParser) -> None:
+    """The benchmark's arguments; the depth ones default to the JAX
+    script's values."""
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card; `cpu` "
                         "runs on the CPU)")
     p.add_argument("--seed", type=int, default=5,
                    help="seed of the synthetic frames")
-    p.add_argument("--frames", type=int, default=frames)
-    p.add_argument("--passes", type=int, default=passes)
+    p.add_argument("--frames", type=int, default=40)
+    p.add_argument("--passes", type=int, default=5)
     p.add_argument("--rendered-frames", type=int, default=40)
     p.add_argument("--size", default=KITTI_SIZE, metavar="HxW",
                    help="frame size of the synthetic sequence")
-
-
-def add_arguments(p: argparse.ArgumentParser) -> None:
-    add_depth_arguments(p, frames=40, passes=5)
     p.add_argument("--stage-calls", type=int, default=50)
 
 
@@ -300,7 +295,7 @@ def run(args) -> dict:
     R = [torch.as_tensor(x).to(dev) for x in rights]
     sync(dev)
     fps, dt, state, out = timed_loop(stepper(cfg), vo.init_state(
-        rig, cfg, device=dev), L, R, passes, 2, dev)
+        rig, cfg, device=dev), L, R, passes, dev)
 
     # ---- run_sequence over the stacked frames ---------------------------
     Ls, Rs = torch.stack(L), torch.stack(R)
@@ -315,9 +310,9 @@ def run(args) -> dict:
 
     # ---- 128-bit BRIEF; sub-pixel refinement -----------------------------
     fps_b16 = timed_loop(stepper(cf["brief16"]), vo.init_state(
-        rig, cf["brief16"], device=dev), L, R, passes, 2, dev)[0]
+        rig, cf["brief16"], device=dev), L, R, passes, dev)[0]
     fps_subpix = timed_loop(stepper(cf["subpix"]), vo.init_state(
-        rig, cf["subpix"], device=dev), L, R, passes, 2, dev)[0]
+        rig, cf["subpix"], device=dev), L, R, passes, dev)[0]
 
     # ---- host -> device -------------------------------------------------
     h2d, h2d_pipe = h2d_rates(lefts, dev)
@@ -360,18 +355,19 @@ def run(args) -> dict:
     # ---- the windowed pipeline at its operating point --------------------
     wcfg = cf["windowed"]
     fps_win, _, _, wout = timed_loop(wstepper(wcfg), window_vo.init_state(
-        rig, wcfg, device=dev), L, R, passes, 2, dev)
+        rig, wcfg, device=dev), L, R, passes, dev)
 
     device = device_name(dev)
+    value = round(fps, 2)       # vs_baseline is value / 200, as in `bench.py`
     mb_frame = 2 * h * w / 1e6                  # a uint8 stereo pair
     link = ("no host-to-device link on the CPU" if h2d is None else
             f"{h2d:.1f} MB/s one pageable put of 8 frames / "
             f"{h2d_pipe:.1f} MB/s 8 frame-sized pageable puts")
     result = {
         "metric": "kitti_stereo_vo_frames_per_s_per_chip",
-        "value": round(fps, 2),
+        "value": value,
         "unit": "frames/s",
-        "vs_baseline": round(fps / BASELINE_FPS, 3),
+        "vs_baseline": round(value / BASELINE_FPS, 3),
         "detail": {
             "resolution": f"{h}x{w}",
             "keypoint_capacity": cfg.grid.capacity,

@@ -13,9 +13,10 @@
   report           study, detection, descriptor and recorded-run figures
                    (SVG) and REPORT.md
   explore          a detector family's whole parameter grid over frames
-  bench            the benchmark: VO frames/s at KITTI size, its variants,
-                   the feed, stage times and the rendered-world ATE, as one
-                   JSON line (`front_end_tpu_torch/bench.py`)
+  bench            the JAX command's benchmark line: VO frames/s at KITTI
+                   size, its variants, the feed, stage times and the
+                   rendered-world ATE (`front_end_tpu_torch/bench.py`);
+                   the port's benchmark is `python3 -m vobench`
 
 Every command that computes runs on the card unless `--device cpu` asks
 for the CPU.  Every command of the JAX package has its counterpart here.

@@ -1,8 +1,8 @@
 """SE(3) / SO(3) utilities (counterpart of `front_end_tpu/geometry/se3.py`).
 
 Batched over leading dims, built from out-of-place ops only (`stack`,
-`cat`, `where`) so `torch.func.jacfwd` can differentiate through them —
-the LM solver takes its Jacobian that way.
+`cat`, `where`) so `torch.func.jacfwd` can differentiate through them:
+the tests hold the LM's and the BA's written-out Jacobians against it.
 """
 from __future__ import annotations
 

@@ -12,27 +12,18 @@ card (measured, `profile_torch_vo.py`).  A fixed number of iterations with
 accept/reject and damping as tensor selects: no step waits on the host.
 
 On the card the loop is some 370 small kernels an iteration, each
-dispatched from Python.  `refine_motion` therefore replays it as one CUDA
-graph: `_refine`, the solver's arithmetic for both paths, is captured once
-per key (device, input shapes and dtypes, iters, huber_px, lm_lambda0, rig:
-its scalars are baked into the kernels) on static inputs; a call copies
-its tensors in, replays, and returns copies of the static outputs, bit for
-bit what `_refine` returns eagerly.  Inputs the graph cannot stand in for
-run `_refine` eagerly: CPU tensors, tensors under a `torch.func` transform
-(the `extract-motion` study's vmap), tensors that require grad, and calls
-made while the current stream is being captured.  The graphs serve calls
-from one stream at a time, as every caller makes them.
+dispatched from Python; `refine_motion` replays it as one CUDA graph a
+key through `pipeline/cuda_graphs.py`, with `_refine` as the eager body.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
 
 from front_end_tpu_torch.geometry import se3
 from front_end_tpu_torch.geometry.camera import StereoRig
-from front_end_tpu_torch.pipeline import telemetry
+from front_end_tpu_torch.pipeline import cuda_graphs, telemetry
 from front_end_tpu_torch.utils.precision import f32_precision
 
 
@@ -100,41 +91,17 @@ def refine_motion(H0, Xa, uvb, valid, rig: StereoRig, *, iters: int = 10,
     """LM refinement of the extrinsic map a -> b.  Xa (N, 3) frame-a
     landmarks, uvb (N, 4) measured [ul, vl, ur, vr] in frame b, valid (N,).
 
-    Counts one `lm.accepted` (0/1) an iteration and, for CUDA inputs,
-    `lm.graph`: 1 for a call served by a graph replay, 0 for one run
-    eagerly.  Nothing is counted while the stream is being captured."""
-    args = (H0, Xa, uvb, valid)
-    capturing = _capturing()
-    if Xa.is_cuda and not capturing and not any(
-            t.requires_grad or _wrapped(t) for t in args):
-        res, accepts = _replay(args, rig, iters, huber_px, lm_lambda0)
-        served = 1
-    else:
-        res, accepts = _refine(*args, rig, iters, huber_px, lm_lambda0)
-        served = 0
-    if not capturing:       # a capture's tensors hold values only at replay
-        for a in accepts:
-            telemetry.count("lm.accepted", a)
-        if Xa.is_cuda:
-            telemetry.count("lm.graph", served)
-    return res
-
-
-def _capturing() -> bool:
-    return (torch.cuda.is_initialized()
-            and torch.cuda.is_current_stream_capturing())
-
-
-def _wrapped(t) -> bool:
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+    Counts one `lm.accepted` (0/1) an iteration and `lm.graph`
+    (`pipeline/cuda_graphs.py`)."""
+    return _refine_graphs((H0, Xa, uvb, valid),
+                          (rig, iters, huber_px, lm_lambda0))
 
 
 @f32_precision
 def _refine(H0, Xa, uvb, valid, rig: StereoRig, iters: int, huber_px: float,
-            lm_lambda0: float) -> tuple[LMResult, list]:
-    """The solver, run eagerly: its result and each iteration's accept
-    flag (a 0-dim bool tensor)."""
-    accepts = []
+            lm_lambda0: float) -> LMResult:
+    """The solver, run eagerly; counts each iteration's accept flag (a
+    0-dim bool tensor) as `lm.accepted`."""
     w_valid = valid.to(torch.float32)
     d = huber_px
 
@@ -162,65 +129,14 @@ def _refine(H0, Xa, uvb, valid, rig: StereoRig, iters: int, huber_px: float,
         r_new = rig.project4(p_new) - uvb
         cost_new = robust_cost(r_new)
         accept = cost_new < cost
-        accepts.append(accept)
+        telemetry.count("lm.accepted", accept)
         xi = torch.where(accept, xi_new, xi)
         p = torch.where(accept, p_new, p)
         r = torch.where(accept, r_new, r)
         cost = torch.where(accept, cost_new, cost)
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9,
                           1e6)
-    return LMResult(H=se3.se3_exp(xi) @ H0, cost=cost, cost0=cost0), accepts
+    return LMResult(H=se3.se3_exp(xi) @ H0, cost=cost, cost0=cost0)
 
 
-class _Captured:
-    """`_refine` captured as one CUDA graph on static inputs.  A replay
-    refreshes them from the call's tensors, and hands back copies of the
-    static outputs, which the next replay overwrites."""
-
-    def __init__(self, args, rig, iters, huber_px, lm_lambda0):
-        self.inputs = [t.detach().clone(memory_format=torch.contiguous_format)
-                       for t in args]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        # one eager run creates the libraries' handles and work space on
-        # the capture's stream, which the capture itself may not
-        with torch.cuda.stream(side):
-            _refine(*self.inputs, rig, iters, huber_px, lm_lambda0)
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: a feed thread's calls on its own stream stay legal
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
-            self.out, accepts = _refine(*self.inputs, rig, iters, huber_px,
-                                        lm_lambda0)
-            self.accepted = (torch.stack(accepts) if accepts else
-                             torch.zeros(0, dtype=torch.bool,
-                                         device=args[1].device))
-
-    def replay(self, args) -> tuple[LMResult, tuple]:
-        for static, t in zip(self.inputs, args):
-            static.copy_(t)
-        self.graph.replay()
-        res = LMResult(*(t.clone() for t in self.out))
-        accepts = (self.accepted.clone().unbind()
-                   if telemetry.is_recording() else ())
-        return res, accepts
-
-
-MAX_GRAPHS = 4      # captured keys kept; a benchmark cell needs one
-_graphs: OrderedDict = OrderedDict()    # key -> _Captured, oldest first
-
-
-def _replay(args, rig, iters, huber_px, lm_lambda0):
-    dev = args[1].device
-    key = (dev, tuple((t.shape, t.dtype) for t in args), iters, huber_px,
-           lm_lambda0, rig)
-    with torch.cuda.device(dev):
-        g = _graphs.get(key)
-        if g is None:
-            g = _graphs[key] = _Captured(args, rig, iters, huber_px,
-                                         lm_lambda0)
-            while len(_graphs) > MAX_GRAPHS:
-                _graphs.popitem(last=False)
-        else:
-            _graphs.move_to_end(key)
-        return g.replay(args)
+_refine_graphs = cuda_graphs.Replayed(_refine, "lm")

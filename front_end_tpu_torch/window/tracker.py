@@ -22,23 +22,13 @@ device; the number of valid window poses is min(frame_idx, W) by
 construction.
 
 The windowed BA is several hundred small kernels an iteration, each
-dispatched from Python.  On the card `run_window_ba` therefore replays it
-as one CUDA graph, as `motion/lm.py` does the LM: `_window_ba`, the
-solve's arithmetic for every path (the outlier gate, the top-K
-selection, `schur.ba_solve` and the store write), is captured once per
-key (device, the shapes and dtypes of the store's and window's tensors
-it reads, iters, huber_px, min_obs, outlier_gate_px, max_landmarks,
-rig) on static inputs; a call copies its tensors in, replays, and
-returns copies of the static outputs, bit for bit what `_window_ba`
-returns eagerly.  CPU tensors, a process group (the sharded solve and
-its collectives), tensors that require grad or sit under a `torch.func`
-transform, and calls made while the current stream is being captured
-run `_window_ba` eagerly.
+dispatched from Python; `run_window_ba` replays it as one CUDA graph a key
+through `pipeline/cuda_graphs.py`, with `_window_ba` (the outlier gate, the
+top-K selection, `schur.ba_solve` and the store write) as the eager body,
+which a process group's sharded solve always runs.
 """
 from __future__ import annotations
 
-import contextlib
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -50,7 +40,7 @@ from front_end_tpu_torch.geometry.camera import StereoRig
 from front_end_tpu_torch.ops import match as match_mod
 from front_end_tpu_torch.ops.dense_select import (compact_rows, put_rows,
                                                   topk_select)
-from front_end_tpu_torch.pipeline import telemetry
+from front_end_tpu_torch.pipeline import cuda_graphs, telemetry
 from front_end_tpu_torch.types import Descriptors, Keypoints
 from front_end_tpu_torch.utils.precision import f32_precision, resolve_device
 
@@ -287,35 +277,14 @@ def run_window_ba(state: WindowState, rig: StereoRig, *, iters: int = 8,
     and divisible by the group's size.
 
     Counts `ba.landmarks` (the landmarks solved), one `ba.accepted` (0/1)
-    an iteration and, for CUDA inputs, `ba.graph`: 1 for a call served by
-    a graph replay, 0 for one run eagerly.  Nothing is counted while the
-    stream is being captured."""
+    an iteration and `ba.graph` (`pipeline/cuda_graphs.py`)."""
     store = state.store
     args = (store.Xw, store.meas, store.vis, store.valid, store.track_len,
             state.poses, state.pose_valid)
-    opts = (iters, huber_px, min_obs, outlier_gate_px, max_landmarks)
-    capturing = _capturing()
-    if group is None and store.Xw.is_cuda and not capturing and not any(
-            t.requires_grad or _wrapped(t) for t in args):
-        Xw, res = _replay(args, rig, opts)
-        served = 1
-    else:
-        # a capture's tensors hold values only at replay: count none
-        with telemetry.diverted() if capturing else contextlib.nullcontext():
-            Xw, res = _window_ba(*args, rig, *opts, group)
-        served = 0
-    if store.Xw.is_cuda and not capturing:
-        telemetry.count("ba.graph", served)
+    Xw, res = _window_ba_graphs(
+        args, (rig, iters, huber_px, min_obs, outlier_gate_px, max_landmarks,
+               group), eager=group is not None)
     return state._replace(store=store._replace(Xw=Xw), poses=res.poses), res
-
-
-def _capturing() -> bool:
-    return (torch.cuda.is_initialized()
-            and torch.cuda.is_current_stream_capturing())
-
-
-def _wrapped(t) -> bool:
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
 
 
 @f32_precision
@@ -372,58 +341,4 @@ def _window_ba(Xw, meas, seen, valid, track_len, poses, pose_valid,
     return torch.where(use[:, None], res.landmarks, Xw), res
 
 
-class _Captured:
-    """`_window_ba` captured as one CUDA graph on static inputs.  A replay
-    refreshes them from the call's tensors, and hands back copies of the
-    static outputs, which the next replay overwrites.  The counts made
-    while capturing are stacked by name into static tensors, which a
-    replay counts while a recording is open."""
-
-    def __init__(self, args, rig, opts):
-        self.inputs = [t.detach().clone(memory_format=torch.contiguous_format)
-                       for t in args]
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        # one eager run creates the libraries' handles and work space (and
-        # the sort's) on the capture's stream, which the capture may not
-        with torch.cuda.stream(side), telemetry.diverted():
-            _window_ba(*self.inputs, rig, *opts)
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: a feed thread's calls on its own stream stay legal
-        with telemetry.diverted() as counts, torch.cuda.graph(
-                self.graph, stream=side, capture_error_mode="thread_local"):
-            self.Xw, self.res = _window_ba(*self.inputs, rig, *opts)
-            by_name: dict = {}
-            for name, value in counts:
-                by_name.setdefault(name, []).append(value)
-            self.counts = {name: torch.stack(vs)
-                           for name, vs in by_name.items()}
-
-    def replay(self, args) -> tuple:
-        for static, t in zip(self.inputs, args):
-            static.copy_(t)
-        self.graph.replay()
-        if telemetry.is_recording():
-            for name, values in self.counts.items():
-                for v in values.clone().unbind():
-                    telemetry.count(name, v)
-        return self.Xw.clone(), schur.BAResult(
-            *(t.clone() for t in self.res))
-
-
-MAX_GRAPHS = 4      # captured keys kept; a benchmark cell needs one
-_graphs: OrderedDict = OrderedDict()    # key -> _Captured, oldest first
-
-
-def _replay(args, rig, opts):
-    dev = args[0].device
-    key = (dev, tuple((t.shape, t.dtype) for t in args), opts, rig)
-    with torch.cuda.device(dev):
-        g = _graphs.get(key)
-        if g is None:
-            g = _graphs[key] = _Captured(args, rig, opts)
-            while len(_graphs) > MAX_GRAPHS:
-                _graphs.popitem(last=False)
-        else:
-            _graphs.move_to_end(key)
-        return g.replay(args)
+_window_ba_graphs = cuda_graphs.Replayed(_window_ba, "ba")

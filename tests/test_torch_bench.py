@@ -1,9 +1,8 @@
 """The port's benchmark (`front_end_tpu_torch/bench.py`, `cli bench`) on
 the CPU at a cut depth: the configurations and frames equal the JAX
 benchmark's, the printed line has the JAX line's keys (plus
-`feed_source`), and without a card the command fails and prints no line.
-The window sweep has its own file, `test_torch_bench_window.py`, so that
-each file stays under a minute on one pytest worker."""
+`feed_source`), and without a card the command fails and prints no
+line."""
 import argparse
 import ast
 import dataclasses

@@ -805,8 +805,17 @@ def _fresh_graphs(monkeypatch):
 
     from front_end_tpu_torch.motion import lm
     graphs = OrderedDict()
-    monkeypatch.setattr(lm, "_graphs", graphs)
+    monkeypatch.setattr(lm._refine_graphs, "graphs", graphs)
     return lm, graphs
+
+
+def _lm_eager(lm, args, rig, iters):
+    """`_refine` run eagerly: its result and the accept flags it counted,
+    kept out of any recording."""
+    from front_end_tpu_torch.pipeline import telemetry
+    with telemetry.diverted() as counts:
+        ref = lm._refine(*args, rig, iters, 3.0, 1e-3)
+    return ref, [v for _, v in counts]
 
 
 @pytest.mark.parametrize("iters", [6, 25])
@@ -827,7 +836,7 @@ def test_lm_graph_replays_equal_the_eager_solver(dev, monkeypatch, config,
                                    "mixed"]):
             args = _lm_inputs(rig, 2304, 100 * iters + k, valid, dev)
             got = lm.refine_motion(*args, rig, iters=iters)
-            ref, accepts = lm._refine(*args, rig, iters, 3.0, 1e-3)
+            ref, accepts = _lm_eager(lm, args, rig, iters)
             for a, b in zip(got, ref):
                 assert bool(torch.isfinite(a).all())
                 assert torch.equal(a, b)
@@ -842,30 +851,6 @@ def test_lm_graph_replays_equal_the_eager_solver(dev, monkeypatch, config,
     assert len(c["lm.accepted"]) == 6 * iters
 
 
-def test_lm_graph_keys_and_bound(dev, monkeypatch):
-    """A new N, rig or iters captures a new graph; a key met again replays
-    its graph; past `MAX_GRAPHS` keys the least recently used goes."""
-    lm, graphs = _fresh_graphs(monkeypatch)
-    kitti, euroc = (_bench_rig(c) for c in ("kitti00-vo-brief",
-                                            "euroc-mh01-window-surfext"))
-    keys = [(kitti, 2304, 6), (kitti, 2304, 25), (euroc, 2304, 6),
-            (kitti, 1000, 6), (euroc, 4608, 6)]
-    seen = []
-    for k, (rig, n, iters) in enumerate(keys):
-        args = _lm_inputs(rig, n, k, "mixed", dev)
-        got = lm.refine_motion(*args, rig, iters=iters)
-        ref, _ = lm._refine(*args, rig, iters, 3.0, 1e-3)
-        assert all(torch.equal(a, b) for a, b in zip(got, ref))
-        assert len(graphs) == min(k + 1, lm.MAX_GRAPHS)
-        seen.append(next(reversed(graphs.values())))
-    assert len(set(map(id, seen))) == len(keys)
-    # the first key went; the second, met again, replays its own graph
-    rig, n, iters = keys[1]
-    lm.refine_motion(*_lm_inputs(rig, n, 9, "all", dev), rig, iters=iters)
-    assert next(reversed(graphs.values())) is seen[1]
-    assert seen[0] not in graphs.values() and len(graphs) == lm.MAX_GRAPHS
-
-
 def test_lm_graph_counts_its_accept_flags(dev, monkeypatch):
     """Capturing counts nothing: after each replay with a recording open,
     the first call's (which captures) too, the accept buffer's copy gives
@@ -877,7 +862,7 @@ def test_lm_graph_counts_its_accept_flags(dev, monkeypatch):
         args = _lm_inputs(rig, 2304, 40 + k, "mixed", dev)
         with telemetry.recording() as rec:
             lm.refine_motion(*args, rig, iters=6)     # the first captures
-        _, accepts = lm._refine(*args, rig, 6, 3.0, 1e-3)
+        _, accepts = _lm_eager(lm, args, rig, 6)
         c = rec.counters()
         assert [v for _, v in c["lm.accepted"]] == [float(a)
                                                      for a in accepts]
@@ -897,7 +882,7 @@ def test_lm_runs_eagerly_on_the_card_where_no_graph_serves(dev, monkeypatch,
     lm, graphs = _fresh_graphs(monkeypatch)
     rig = _bench_rig("kitti00-vo-brief")
     H0, X, uvb, valid = _lm_inputs(rig, 2304, 7, "mixed", dev)
-    ref, _ = lm._refine(H0, X, uvb, valid, rig, 25, 3.0, 1e-3)
+    ref = lm._refine(H0, X, uvb, valid, rig, 25, 3.0, 1e-3)
     with telemetry.recording() as rec:
         if case == "vmap":
             H = torch.func.vmap(
@@ -913,7 +898,7 @@ def test_lm_runs_eagerly_on_the_card_where_no_graph_serves(dev, monkeypatch,
         else:
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), telemetry.diverted():
                 lm._refine(H0, X, uvb, valid, rig, 25, 3.0, 1e-3)
             outer = torch.cuda.CUDAGraph()
             with torch.cuda.graph(outer, stream=side):
@@ -932,7 +917,7 @@ def _fresh_ba_graphs(monkeypatch):
 
     from front_end_tpu_torch.window import tracker
     graphs = OrderedDict()
-    monkeypatch.setattr(tracker, "_graphs", graphs)
+    monkeypatch.setattr(tracker._window_ba_graphs, "graphs", graphs)
     return tracker, graphs
 
 
@@ -1007,32 +992,61 @@ def test_ba_graph_counts_equal_the_eager_run(dev, monkeypatch):
     assert len(graphs) == 1
 
 
-def test_ba_graph_keys_and_bound(dev, monkeypatch):
-    """A new K, iters, store size or rig captures a new graph; a key met
-    again replays its graph; past `MAX_GRAPHS` keys the least recently
-    used goes."""
+def _lm_keys(monkeypatch, dev):
+    """The LM's keys (rig, N, iters), and a call that checks its replay
+    against `_refine`."""
+    lm, graphs = _fresh_graphs(monkeypatch)
+    kitti, euroc = (_bench_rig(c) for c in ("kitti00-vo-brief",
+                                            "euroc-mh01-window-surfext"))
+    keys = [(kitti, 2304, 6), (kitti, 2304, 25), (euroc, 2304, 6),
+            (kitti, 1000, 6), (euroc, 4608, 6)]
+
+    def call(key, seed):
+        rig, n, iters = key
+        args = _lm_inputs(rig, n, seed, "mixed", dev)
+        got = lm.refine_motion(*args, rig, iters=iters)
+        ref = lm._refine(*args, rig, iters, 3.0, 1e-3)
+        return all(torch.equal(a, b) for a, b in zip(got, ref))
+    return graphs, keys, call
+
+
+def _ba_keys(monkeypatch, dev):
+    """The BA's keys (rig, store size, iters, K), and a call that checks
+    its replay against `_window_ba`."""
     from _window_ba_problem import eager, window_state
     tracker, graphs = _fresh_ba_graphs(monkeypatch)
     euroc, kitti = (_bench_rig(c) for c, _ in BA_CELLS)
     keys = [(euroc, 4608, 6, 1024), (kitti, 4608, 2, 1024),
             (euroc, 4608, 6, None), (euroc, 2304, 6, 1024),
             (kitti, 4608, 6, 1024)]
-    seen = []
-    for k, (rig, M, iters, K) in enumerate(keys):
-        st = window_state(rig, M, seed=k, device=dev)
+
+    def call(key, seed):
+        rig, M, iters, K = key
+        st = window_state(rig, M, seed=seed, device=dev)
         got = tracker.run_window_ba(st, rig, iters=iters, max_landmarks=K)
-        assert _ba_equal(got, eager(st, rig, iters=iters, max_landmarks=K))
-        assert len(graphs) == min(k + 1, tracker.MAX_GRAPHS)
+        return _ba_equal(got, eager(st, rig, iters=iters, max_landmarks=K))
+    return graphs, keys, call
+
+
+@pytest.mark.parametrize("keys", [_lm_keys, _ba_keys],
+                         ids=["lm_refine", "ba_window"])
+def test_graph_keys_and_bound(dev, monkeypatch, keys):
+    """A new key (the LM's N, rig or iters; the BA's K, iters, store size
+    or rig) captures a new graph; a key met again replays its graph; past
+    `MAX_GRAPHS` keys the least recently used goes."""
+    from front_end_tpu_torch.pipeline.cuda_graphs import MAX_GRAPHS
+    graphs, keys, call = keys(monkeypatch, dev)
+    seen = []
+    for k, key in enumerate(keys):
+        assert call(key, k)
+        assert len(graphs) == min(k + 1, MAX_GRAPHS)
         seen.append(next(reversed(graphs.values())))
     assert len(set(map(id, seen))) == len(keys)
     # the first key went; the second, met again, replays its own graph
-    rig, M, iters, K = keys[1]
-    st = window_state(rig, M, seed=9, device=dev)
-    got = tracker.run_window_ba(st, rig, iters=iters, max_landmarks=K)
-    assert _ba_equal(got, eager(st, rig, iters=iters, max_landmarks=K))
+    assert call(keys[1], 9)
     assert next(reversed(graphs.values())) is seen[1]
     assert seen[0] not in graphs.values()
-    assert len(graphs) == tracker.MAX_GRAPHS
+    assert len(graphs) == MAX_GRAPHS
 
 
 @pytest.mark.parametrize("case", ["capture", "grad", "group"])

@@ -75,7 +75,7 @@ def test_every_module_of_the_port_is_walked():
                 "utils.checkpoint", "utils.png", "eval.metrics", "viz.draw",
                 "sim.synthetic", "ba.distributed", "analysis.sweeps",
                 "analysis.report", "analysis.explore", "viz.svg", "bench",
-                "bench_window"):
+                "pipeline.cuda_graphs"):
         assert f"front_end_tpu_torch.{mod}" in names, mod
 
 

@@ -18,7 +18,7 @@ from front_end_tpu_torch.io.feed import DeviceFeed
 from front_end_tpu_torch.io.kitti import KittiSequence
 from front_end_tpu_torch.motion import lm
 from front_end_tpu_torch.ops import grid
-from front_end_tpu_torch.pipeline import telemetry, vo, window_vo
+from front_end_tpu_torch.pipeline import cuda_graphs, telemetry, vo, window_vo
 from front_end_tpu_torch.sim.sequence import make_sequence
 from torch_parity import pan_poses, write_kitti
 
@@ -299,12 +299,14 @@ def _lm_problem(n=50, seed=0):
 def test_refine_motion_runs_eagerly_where_no_graph_serves(case, monkeypatch,
                                                           no_recording):
     """CPU tensors, a `torch.func.vmap` (the study's), inputs that require
-    grad and a call inside a capture run `_refine` eagerly; `lm.graph` is
-    not counted on the CPU, and a capture keeps no count at all."""
+    grad and a call inside a capture run `_refine` eagerly and capture
+    nothing; `lm.graph` is not counted on the CPU, and a capture keeps no
+    count at all."""
     rig, eye = _rig(), torch.eye(4)
     X, uv, valid = _lm_problem()
     calls = []
-    eager = lm._refine
+    graphs = lm._refine_graphs
+    eager = graphs.body
 
     def spy(*a):
         calls.append(a[1].shape)
@@ -313,10 +315,10 @@ def test_refine_motion_runs_eagerly_where_no_graph_serves(case, monkeypatch,
     def no_graph(*a):
         raise AssertionError("no graph can serve these inputs")
 
-    monkeypatch.setattr(lm, "_refine", spy)
-    monkeypatch.setattr(lm, "_replay", no_graph)
+    monkeypatch.setattr(graphs, "body", spy)
+    monkeypatch.setattr(graphs, "_replay", no_graph)
     if case == "capture":
-        monkeypatch.setattr(lm, "_capturing", lambda: True)
+        monkeypatch.setattr(cuda_graphs, "_capturing", lambda: True)
     if case == "grad":
         X.requires_grad_(True)
     with telemetry.recording() as rec:
@@ -329,6 +331,7 @@ def test_refine_motion_runs_eagerly_where_no_graph_serves(case, monkeypatch,
         else:
             res = lm.refine_motion(eye, X, uv, valid, rig, iters=3)
     assert calls == [X.shape]
+    assert not graphs.graphs
     c = rec.counters()
     assert "lm.graph" not in c
     kept = {"cpu": 3, "grad": 3, "vmap": 0, "capture": 0}[case]
@@ -337,7 +340,9 @@ def test_refine_motion_runs_eagerly_where_no_graph_serves(case, monkeypatch,
         res.cost.backward()
         assert X.grad is not None and bool(torch.isfinite(X.grad).all())
     elif case != "vmap":
-        ref, accepts = eager(eye, X, uv, valid, rig, 3, 3.0, 1e-3)
+        with telemetry.diverted() as counts:
+            ref = eager(eye, X, uv, valid, rig, 3, 3.0, 1e-3)
+        accepts = [v for _, v in counts]
         assert all(torch.equal(a, b) for a, b in zip(res, ref))
         assert [v for _, v in c.get("lm.accepted", [])] == (
             [float(a) for a in accepts] if kept else [])

@@ -1,11 +1,12 @@
-"""The windowed BA's dispatch (`window/tracker.py::run_window_ba`) on the
-CPU: CPU tensors, a process group, inputs that require grad and calls
-inside a capture run the eager body `_window_ba` and capture nothing;
-`ba.graph` is counted for CUDA calls only; the eager body equals the
-frozen plain reference bit for bit and counts what the solve counted
-before it was split out; `window_vo_step` reaches the BA through the
-module attribute the benchmark's `ba_ms` wraps; `telemetry.diverted`.
-The replay itself runs on the card (`tests/test_torch_cuda.py -k ba_`).
+"""The windowed BA's dispatch (`window/tracker.py::run_window_ba`,
+through `pipeline/cuda_graphs.py`) on the CPU: CPU tensors, a process
+group, inputs that require grad and calls inside a capture run the eager
+body `_window_ba` and capture nothing; `ba.graph` is counted for CUDA
+calls only; the eager body equals the frozen plain reference bit for bit
+and counts what the solve counted before it was split out;
+`window_vo_step` reaches the BA through the module attribute the
+benchmark's `ba_ms` wraps; `telemetry.diverted`.  The replay itself runs
+on the card (`tests/test_torch_cuda.py -k ba_`).
 """
 import threading
 
@@ -14,7 +15,7 @@ import torch
 
 from _window_ba_problem import eager, window_state
 from front_end_tpu_torch.geometry.camera import StereoRig
-from front_end_tpu_torch.pipeline import telemetry
+from front_end_tpu_torch.pipeline import cuda_graphs, telemetry
 from front_end_tpu_torch.window import tracker
 
 
@@ -35,7 +36,8 @@ def no_recording():
 def no_graph(monkeypatch):
     """The eager body's calls, with the replay refused."""
     calls = []
-    body = tracker._window_ba
+    graphs = tracker._window_ba_graphs
+    body = graphs.body
 
     def spy(*a):
         calls.append(a[-1])             # the group
@@ -44,8 +46,8 @@ def no_graph(monkeypatch):
     def refuse(*a):
         raise AssertionError("no graph can serve these inputs")
 
-    monkeypatch.setattr(tracker, "_window_ba", spy)
-    monkeypatch.setattr(tracker, "_replay", refuse)
+    monkeypatch.setattr(graphs, "body", spy)
+    monkeypatch.setattr(graphs, "_replay", refuse)
     return calls
 
 
@@ -69,7 +71,7 @@ def test_window_ba_runs_eagerly_where_no_graph_serves(case, monkeypatch,
     ref = eager(st, rig, iters=4, max_landmarks=64)
     no_graph.clear()
     if case == "capture":
-        monkeypatch.setattr(tracker, "_capturing", lambda: True)
+        monkeypatch.setattr(cuda_graphs, "_capturing", lambda: True)
     if case == "grad":
         st = st._replace(store=st.store._replace(
             Xw=st.store.Xw.clone().requires_grad_(True)))
@@ -86,7 +88,7 @@ def test_window_ba_runs_eagerly_where_no_graph_serves(case, monkeypatch,
         if group is not None:
             dist.destroy_process_group()
     assert no_graph == [group]
-    assert not tracker._graphs
+    assert not tracker._window_ba_graphs.graphs
     c = rec.counters()
     assert "ba.graph" not in c
     if case == "capture":
