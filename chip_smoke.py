@@ -647,7 +647,11 @@ def cli_phase(torch, dev, card, lefts, rights, rig, cfg, poses_mem,
     stages, counters, meta = telemetry.load_log(rec)
     check(stages["frame"].shape == (n,) and set(counters) == {
         "n_detect_l", "n_stereo", "n_tracks", "n_inliers", "lm.accepted",
-        "lm.graph"}, f"recording {list(stages)} {list(counters)}")
+        "lm.graph", "extract.graph"},
+        f"recording {list(stages)} {list(counters)}")
+    for name in ("lm.graph", "extract.graph"):    # every call a replay
+        check(bool((counters[name] == 1).all()),
+              f"recording {name} {counters[name]}")
     check(meta["platform"] == torch.cuda.get_device_name(dev),
           f"recorded platform {meta['platform']}")
     rec_ms = float(np.median(stages["frame"])) * 1e3
@@ -1264,6 +1268,8 @@ def main() -> int:
     from front_end_tpu_torch.ops import (akaze, brief, brisk, grid, image,
                                          match, orb, sift)
     from front_end_tpu_torch.ops import fast as fast_ops
+    from front_end_tpu_torch.ops.kernels import NAMES as kernel_names
+    from front_end_tpu_torch.ops.kernels import modules as kernel_modules
     from front_end_tpu_torch.ops.kernels import (_build, brief_keypoints,
                                                  brief_planes, fast_detect,
                                                  fast_grid, fast_margins,
@@ -1304,10 +1310,7 @@ def main() -> int:
     lefts, rights = make_sequence(WINDOW_FRAMES, rig.height, rig.width)
     H, W = rig.height, rig.width
     kernels = []
-    modules = {"fast_grid": fast_grid, "brief_planes": brief_planes,
-               "brief_keypoints": brief_keypoints,
-               "match_reduce": match_reduce, "fast_detect": fast_detect,
-               "fast_margins": fast_margins}
+    modules = dict(zip(kernel_names, kernel_modules()))
     by_path = {}
 
     def reset_counts():

@@ -35,12 +35,15 @@ from front_end_tpu_torch.types import Descriptors, Keypoints
 ORIENT_PATCH = 31
 
 
-@functools.lru_cache(maxsize=1)
-def _moment_kernels_np():
+@functools.lru_cache(maxsize=None)
+def _moment_kernels(device):
+    """The (circ·x, circ·y) windows, (2, 1, kh, kw), made once per device:
+    a call copies no constant to the card."""
     r = ORIENT_PATCH // 2
     gy, gx = np.mgrid[-r:r + 1, -r:r + 1].astype(np.float32)
     circ = (gx**2 + gy**2 <= r * r).astype(np.float32)
-    return np.stack([gx * circ, gy * circ])[:, None]      # (2, 1, kh, kw)
+    return torch.as_tensor(np.stack([gx * circ, gy * circ])[:, None],
+                           device=device)
 
 
 def intensity_centroid_angle(img, xy):
@@ -53,8 +56,8 @@ def intensity_centroid_angle(img, xy):
     then two point samples per keypoint."""
     img = img.to(torch.float32)
     H, W = img.shape[-2:]
-    kern = torch.as_tensor(_moment_kernels_np(), device=img.device)
-    mom = F.conv2d(img[None, None], kern, padding=ORIENT_PATCH // 2)[0]
+    mom = F.conv2d(img[None, None], _moment_kernels(img.device),
+                   padding=ORIENT_PATCH // 2)[0]
     xi = torch.round(xy[:, 0]).to(torch.int64).clamp(0, W - 1)
     yi = torch.round(xy[:, 1]).to(torch.int64).clamp(0, H - 1)
     flat = mom.reshape(2, -1)
@@ -69,6 +72,17 @@ def _wta_pattern_np(groups: int, k: int, patch: int, seed: int):
                    -(patch // 2), patch // 2).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _pattern_on(n_bits: int, wta_k: int, seed: int, device):
+    """The (G, k, 2) float32 sampling pattern, made once per device."""
+    if wta_k == 2:
+        pts = brief_mod.brief_pattern(n_bits, brief_mod.PATCH,
+                                      seed).astype(np.float32)
+    else:
+        pts = _wta_pattern_np(n_bits // 2, wta_k, 31, seed)
+    return torch.as_tensor(pts, device=device)
+
+
 def describe(img_smooth, xy, angle, n_bytes: int = 32, *, wta_k: int = 2,
              pattern_seed: int = 7) -> Descriptors:
     """Steered BRIEF / WTA_K descriptor.
@@ -76,14 +90,9 @@ def describe(img_smooth, xy, angle, n_bytes: int = 32, *, wta_k: int = 2,
     img_smooth: output of `brief.smooth`; xy: (N, 2); angle: (N,) radians.
     wta_k=2: n_bytes*8 pairwise sign bits (classic rBRIEF).
     wta_k=3/4: n_bytes*4 groups, each one-hot over its K points."""
-    n_bits = 8 * n_bytes
     H, W = img_smooth.shape[-2:]
-    if wta_k == 2:
-        pts = brief_mod.brief_pattern(n_bits, brief_mod.PATCH,
-                                      pattern_seed).astype(np.float32)
-    else:
-        pts = _wta_pattern_np(n_bits // 2, wta_k, 31, pattern_seed)
-    patf = torch.as_tensor(pts, device=img_smooth.device)     # (G, k, 2)
+    patf = _pattern_on(8 * n_bytes, wta_k, pattern_seed,
+                       img_smooth.device)                     # (G, k, 2)
 
     ca, sa = torch.cos(angle), torch.sin(angle)               # (N,)
     px = (patf[None, ..., 0] * ca[:, None, None]

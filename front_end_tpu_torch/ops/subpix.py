@@ -67,8 +67,9 @@ def corner_subpix(img, xy, valid=None, *, win: int = 5, iters: int = 5,
                             torch.zeros_like(q))
         q = q + shift.clamp(-float(win), float(win))
 
-    q = torch.minimum(q.clamp(min=0.0), torch.tensor(
-        [W - 1.0, H - 1.0], dtype=torch.float32, device=dev))
+    q = q.clamp(min=0.0)        # no host copy: a CUDA graph may hold it
+    q = torch.stack([q[:, 0].clamp(max=W - 1.0), q[:, 1].clamp(max=H - 1.0)],
+                    -1)
     d = q - xy
     moved = torch.sqrt((d * d).sum(-1))
     q = torch.where((moved <= win * 1.5)[:, None], q, xy)

@@ -1,6 +1,7 @@
 """An eager body of small kernels, such as the LM polish
-(`motion/lm.py::_refine`) or the windowed BA
-(`window/tracker.py::_window_ba`), replayed as one CUDA graph a key.
+(`motion/lm.py::_refine`), the windowed BA
+(`window/tracker.py::_window_ba`) or extraction
+(`pipeline/vo.py::_extract_body`), replayed as one CUDA graph a key.
 
 `Replayed(body, name)` captures the body once per key (device, the
 shapes and dtypes of its tensor inputs, its static arguments, whose
@@ -18,7 +19,10 @@ The body counts through `telemetry.count`.  A capture diverts the counts
 (their tensors hold values only at each replay) and stacks them by name
 into static tensors, which a replay counts while a recording is open.  A
 call with CUDA inputs counts `<name>.graph`: 1 for a replay, 0 for an
-eager run.  Inside a capture nothing is counted.
+eager run.  Inside a capture nothing is counted.  The kernel wrappers'
+launch counters (`ops/kernels`) likewise: the capture's eager run and
+the capture itself count no launch, and each replay adds the launches
+the graph holds.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from collections import OrderedDict
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from front_end_tpu_torch.ops import kernels
 from front_end_tpu_torch.pipeline import telemetry
 
 MAX_GRAPHS = 4      # captured keys kept a body; a benchmark cell needs one
@@ -46,12 +51,15 @@ class _Captured:
     def __init__(self, body, tensors, static):
         self.inputs = [t.detach().clone(memory_format=torch.contiguous_format)
                        for t in tensors]
+        mods = kernels.modules()
+        before = [m.launches for m in mods]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         # one eager run creates the libraries' handles and work space (and
         # the sort's) on the capture's stream, which the capture may not
         with torch.cuda.stream(side), telemetry.diverted():
             body(*self.inputs, *static)
+        warm = [m.launches for m in mods]
         self.graph = torch.cuda.CUDAGraph()
         # thread_local: a feed thread's calls on its own stream stay legal
         with telemetry.diverted() as counts, torch.cuda.graph(
@@ -63,11 +71,18 @@ class _Captured:
                 by_name.setdefault(name, []).append(value)
             self.counts = {name: torch.stack(vs)
                            for name, vs in by_name.items()}
+        # each replay counts the launches the graph holds
+        self.launches = [(m, m.launches - n) for m, n in zip(mods, warm)
+                         if m.launches != n]
+        for m, n in zip(mods, before):
+            m.launches = n
 
     def replay(self, tensors):
         for static, t in zip(self.inputs, tensors):
             static.copy_(t)
         self.graph.replay()
+        for m, n in self.launches:
+            m.launches += n
         if telemetry.is_recording():
             for name, values in self.counts.items():
                 for v in values.clone().unbind():
@@ -77,12 +92,13 @@ class _Captured:
 
 class Replayed:
     """`body(*tensors, *static)` served by a CUDA graph where one can
-    serve it; its graphs, at most `MAX_GRAPHS` keys, least recently used
+    serve it; its graphs, at most `max_graphs` keys, least recently used
     first out."""
 
-    def __init__(self, body, name: str):
+    def __init__(self, body, name: str, max_graphs: int = MAX_GRAPHS):
         self.body = body
         self.name = name
+        self.max_graphs = max_graphs
         self.graphs: OrderedDict = OrderedDict()    # key -> _Captured
 
     def __call__(self, tensors: tuple, static: tuple, *,
@@ -112,7 +128,7 @@ class Replayed:
             g = self.graphs.get(key)
             if g is None:
                 g = self.graphs[key] = _Captured(self.body, tensors, static)
-                while len(self.graphs) > MAX_GRAPHS:
+                while len(self.graphs) > self.max_graphs:
                     self.graphs.popitem(last=False)
             else:
                 self.graphs.move_to_end(key)

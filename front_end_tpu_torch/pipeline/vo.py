@@ -44,7 +44,7 @@ from front_end_tpu_torch.ops import orb as orb_mod
 from front_end_tpu_torch.ops import subpix as subpix_mod
 from front_end_tpu_torch.ops import surf as surf_mod
 from front_end_tpu_torch.ops.dense_select import take_rows
-from front_end_tpu_torch.pipeline import telemetry
+from front_end_tpu_torch.pipeline import cuda_graphs, telemetry
 from front_end_tpu_torch.types import Descriptors, Keypoints
 from front_end_tpu_torch.utils.precision import f32_precision, resolve_device
 
@@ -203,7 +203,24 @@ def _describe(left, right, kl, kr, cfg: VOConfig):
 
 def _extract_frame(left, right, tl, tr, rig: StereoRig, cfg: VOConfig):
     """Stages 1-5: detection, refinement, description, stereo matching,
-    triangulation."""
+    triangulation -> (features, left and right thresholds, counts).  On
+    the card one CUDA graph replay a call (`pipeline/cuda_graphs.py`,
+    counter `extract.graph`)."""
+    out = _extract_graphs((left, right, tl, tr), (rig, cfg))
+    kps = Keypoints(xy=out["xy"], score=out["score"], angle=out["angle"],
+                    valid=out["valid"])
+    feats = FrameFeatures(kps=kps, bits=out["bits"],
+                          packed=out.get("packed"), X=out["X"],
+                          stereo_valid=out["stereo_valid"], uv4=out["uv4"])
+    stats = {k: out[k] for k in ("n_detect_l", "n_detect_r", "n_stereo")}
+    return feats, out["tl"], out["tr"], stats
+
+
+@f32_precision
+def _extract_body(left, right, tl, tr, rig: StereoRig, cfg: VOConfig
+                  ) -> dict:
+    """The stages, run eagerly: a dict of tensors (`packed` only for
+    binary descriptors), which a graph's outputs flatten to."""
     detl, detr = grid_mod.detect_pair(left, right, tl, tr, cfg.grid)
     kl, kr = detl.keypoints, detr.keypoints
     if cfg.subpix:
@@ -226,12 +243,19 @@ def _extract_frame(left, right, tl, tr, rig: StereoRig, cfg: VOConfig):
         max_disparity=cfg.max_disparity, norm=cfg.desc_norm)
 
     xy_r = take_rows(kr.xy, m.train_idx)
-    feats = FrameFeatures(kps=kl, bits=dl.bits, packed=dl.packed,
-                          X=rig.triangulate(kl.xy, xy_r),
-                          stereo_valid=m.valid,
-                          uv4=torch.cat([kl.xy, xy_r], -1))
-    stats = dict(n_detect_l=kl.count, n_detect_r=kr.count, n_stereo=m.count)
-    return feats, detl.thresholds, detr.thresholds, stats
+    out = dict(xy=kl.xy, score=kl.score, angle=kl.angle, valid=kl.valid,
+               bits=dl.bits, X=rig.triangulate(kl.xy, xy_r),
+               stereo_valid=m.valid, uv4=torch.cat([kl.xy, xy_r], -1),
+               tl=detl.thresholds, tr=detr.thresholds,
+               n_detect_l=kl.count, n_detect_r=kr.count, n_stereo=m.count)
+    if dl.packed is not None:
+        out["packed"] = dl.packed
+    return out
+
+
+# a key a descriptor and sub-pixel setting before any is dropped
+_extract_graphs = cuda_graphs.Replayed(_extract_body, "extract",
+                                       max_graphs=2 * len(DESCRIPTORS))
 
 
 def _estimate_motion(sampler, cur: FrameFeatures, prev: FrameFeatures,

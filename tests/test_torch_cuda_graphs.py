@@ -2,9 +2,10 @@
 CPU, on a toy body that counts: CPU tensors, tensors that require grad,
 a `torch.func.vmap`, a call inside a capture and a caller's `eager=True`
 run the body eagerly and capture nothing; what is counted in each case;
-a call a graph can serve goes to the replay.  The LM and the windowed BA
-each hold one helper.  The replay itself runs on the card
-(`tests/test_torch_cuda.py -k "lm_ or ba_"`).
+a call a graph can serve goes to the replay.  The LM, the windowed BA and
+extraction each hold one helper.  The replay itself runs on the card
+(`tests/test_torch_cuda.py -k "lm_ or ba_"`,
+`tests/test_torch_extract_graph.py`).
 
 A tensor that says it is on CUDA (`_OnCuda`) stands in for a card's
 inputs, so the dispatch's other conditions are reached here.
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from front_end_tpu_torch.motion import lm
-from front_end_tpu_torch.pipeline import cuda_graphs, telemetry
+from front_end_tpu_torch.pipeline import cuda_graphs, telemetry, vo
 from front_end_tpu_torch.window import tracker
 
 
@@ -125,11 +126,12 @@ def test_a_call_a_graph_can_serve_goes_to_the_replay(monkeypatch,
 
 
 @pytest.mark.parametrize("module,body", [(lm, "_refine"),
-                                         (tracker, "_window_ba")],
-                         ids=["lm", "tracker"])
+                                         (tracker, "_window_ba"),
+                                         (vo, "_extract_body")],
+                         ids=["lm", "tracker", "vo"])
 def test_each_replayed_body_holds_one_helper(module, body):
-    """The LM and the windowed BA each hold one helper around their eager
-    body, and no capture machinery of their own."""
+    """The LM, the windowed BA and extraction each hold one helper around
+    their eager body, and no capture machinery of their own."""
     held = [v for v in vars(module).values()
             if isinstance(v, cuda_graphs.Replayed)]
     assert len(held) == 1
