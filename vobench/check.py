@@ -29,11 +29,8 @@ import math
 import numpy as np
 import torch
 
-from vobench.reference import camera as ref_camera
-from vobench.reference import grid as ref_grid
+from vobench import spec
 from vobench.reference import precision as ref_precision
-from vobench.reference import vo as ref_vo
-from vobench.reference import window_vo as ref_window
 
 COUNTS = ("n_detect_l", "n_detect_r", "n_stereo", "n_tracks")
 NUMBERS = ("counts_mismatch", "inliers_gap", "tracked_gap", "motion_gap_m",
@@ -42,55 +39,45 @@ PIXEL_WEIGHT_BITS = 23      # 255 * weight stays inside int32
 
 
 class Reference:
-    """The configuration's entry in plain PyTorch."""
+    """The configuration's entry in plain PyTorch
+    (`vobench/reference/entries/<entry>.py`, found by name)."""
 
-    def __init__(self, config: dict, device):
+    def __init__(self, config: dict, device, root=spec.ROOT):
         self.device = torch.device(device)
-        r = config["rig"]
-        self.rig = ref_camera.StereoRig.create(
-            fx=r["fx"], fy=r["fy"], cx=r["cx"], cy=r["cy"],
-            baseline=r["baseline"], width=r["width"], height=r["height"])
-        kw = dict(config["vo"])
-        cfg = ref_vo.VOConfig(grid=ref_grid.GridConfig(**kw.pop("grid")),
-                              **kw)
         self.entry = config["entry"]
-        if self.entry == "window":
-            w = dict(config["window"])
-            self.cfg = ref_window.WindowVOConfig.create(
-                cfg, window=w.pop("window"), capacity=w.pop("capacity"), **w)
-            self.mod = ref_window
-        else:
-            self.cfg = cfg
-            self.mod = ref_vo
+        self.mod = spec.load_reference_entry(self.entry, root)
+        self.rig, self.cfg = self.mod.setup(config)
 
     def run(self, lefts, rights, order, seed: int):
         """Step over the pairs in `order` -> (poses (M, 4, 4) float64,
         {name: (M,) array} of the compared scalars)."""
-        state = self.mod.init_state(self.rig, self.cfg, seed=seed,
-                                    device=self.device)
+        state = self.mod.init_state(self.rig, self.cfg, seed, self.device)
         poses, rows = [], []
         for i in order:
             left = torch.from_numpy(lefts[i]).to(self.device)
             right = torch.from_numpy(rights[i]).to(self.device)
-            if self.entry == "window":
-                state, out = ref_window.window_vo_step(
-                    state, left, right, self.rig, self.cfg)
-                f = out.frame
-                extra = [out.n_tracked]
-            else:
-                state, f = ref_vo.vo_step(state, left, right, self.rig,
-                                          self.cfg)
-                extra = []
-            poses.append(f.pose)
-            rows.append(torch.stack([
-                *(getattr(f, k).to(torch.float64) for k in COUNTS),
-                f.n_inliers.to(torch.float64),
-                *(e.to(torch.float64) for e in extra)]))
+            state, out = self.mod.step(state, left, right, self.rig,
+                                       self.cfg)
+            poses.append(self.mod.frame(out).pose)
+            rows.append(torch.stack([v.to(torch.float64)
+                                     for v in scalars(self.mod, out)]))
         poses = torch.stack(poses).cpu().numpy().astype(np.float64)
         vals = torch.stack(rows).cpu().numpy()
-        names = list(COUNTS) + ["n_inliers"] + (
-            ["n_tracked"] if self.entry == "window" else [])
-        return poses, {k: vals[:, j] for j, k in enumerate(names)}
+        return poses, {k: vals[:, j] for j, k in enumerate(fields(self.mod))}
+
+
+def fields(entry) -> tuple:
+    """The names of the per-frame scalars compared for an entry (port or
+    reference): the frame's counts and inliers, then its `EXTRA`."""
+    return COUNTS + ("n_inliers",) + tuple(entry.EXTRA)
+
+
+def scalars(entry, out) -> list:
+    """One frame's compared scalars as device tensors, in `fields` order,
+    from an entry's step outputs."""
+    f = entry.frame(out)
+    return ([getattr(f, k) for k in COUNTS + ("n_inliers",)]
+            + list(entry.extras(out)))
 
 
 def _relative(poses: np.ndarray) -> np.ndarray:

@@ -1,6 +1,7 @@
-"""The 95th percentile over every frame of the window of the time from
-the loop's request for the frame to its pose on the host, waits on the
-feed and the decode included."""
+"""The 95th percentile over every frame of the window of the time to its
+pose on the host from the request, or in an open loop from the frame's
+due time: waits on the feed and the decode included, and in an open loop
+the wait behind a late frame too."""
 from vobench import stats
 
 

@@ -10,15 +10,20 @@ then forward again, so any number of frames sees continuous motion).
 The source is `mem` (the host arrays) or `png` (KITTI-layout files
 written once per checkout, seed and configuration into `vobench/_cache/`,
 and read back by the port's `io/kitti.py`; the `PNG_KEEP` keys used last
-are kept, about 56 MB each at KITTI's size).
+are kept, about 56 MB each at KITTI's size).  The loop is `closed` (a
+frame is there when the loop asks for it) or `open` (a camera: frame k
+is handed over no earlier than its due time, at the mix's `rate`).
 """
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
+import math
 import os
 import shutil
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -32,6 +37,8 @@ CACHE = Path(__file__).resolve().parent / "_cache"
 RENDER_BATCH = 16       # poses rendered per call
 ENCODE_THREADS = 6      # zlib releases the interpreter lock
 PNG_KEEP = 8            # png file sets kept in the cache, by last use
+SPIN_S = 0.002          # an open loop spins the last stretch before a due
+                        # time: the host's timer wakes a sleeper ~1 ms late
 
 
 @dataclass
@@ -40,6 +47,7 @@ class Frames:
     rights: np.ndarray
     gt: np.ndarray          # (N, 4, 4) float64 world_T_camera
     png_root: Path | None   # KITTI-layout root of the png source
+    hz: float = 0.0         # the camera rate the path was rendered at
 
 
 def seed_of(seed: int) -> int:
@@ -62,7 +70,7 @@ def render(config: dict, n: int, seed: int, device) -> Frames:
         for out, right in ((lefts, False), (rights, True)):
             out[a:b] = scene.render_views(planes, config["rig"], poses[a:b],
                                           right=right).cpu().numpy()
-    return Frames(lefts, rights, gt, None)
+    return Frames(lefts, rights, gt, None, float(config["camera_hz"]))
 
 
 def replay(n: int, kind: str):
@@ -162,30 +170,94 @@ def prepare(config: dict, traffic: dict, seed: int, device) -> Frames:
     return frames
 
 
+def rate_of(frames: Frames, traffic: dict) -> float:
+    """An open loop's frames a second: the mix's `rate`, a number or
+    `camera_hz` (the configuration's camera rate)."""
+    rate = traffic["rate"]
+    rate = frames.hz if rate == "camera_hz" else float(rate)
+    if not rate > 0:
+        raise ValueError(f"an open loop needs a rate above 0, not {rate!r}")
+    return rate
+
+
+class Clock:
+    """The host's clock, on which an open loop's frames fall due (tests
+    give a fake one)."""
+
+    @staticmethod
+    def now() -> float:
+        return time.perf_counter()
+
+    @staticmethod
+    def sleep_until(t: float, stop: threading.Event):
+        """Until now() >= t, or until `stop` is set."""
+        while not stop.is_set():
+            left = t - time.perf_counter()
+            if left <= 0:
+                return
+            if left > SPIN_S:
+                stop.wait(left - SPIN_S)
+            else:
+                time.sleep(0)       # lets the interpreter lock go
+
+
 class Source:
     """The frames a loop requests, in replay order, as the source delivers
     them: host arrays (`mem`) or files read by the port's KITTI loader
-    (`png`).  `stop()` ends the iteration after the frame in hand."""
+    (`png`).  In a closed loop a frame is handed over when it is asked
+    for.  In an open loop nothing is handed over before `start(t0)`, and
+    frame k not before its due time `due(k) = t0 + (k - first) / rate`; a
+    frame asked for late is handed over at once and never dropped, and
+    `lags` keeps each hand-off's seconds after its due time.  The source
+    begins at frame `first` of the replay.  `stop()` ends the iteration
+    after the frame in hand."""
 
-    def __init__(self, frames: Frames, traffic: dict):
-        if traffic["loop"] != "closed":
+    def __init__(self, frames: Frames, traffic: dict, clock=None,
+                 first: int = 0):
+        if traffic["loop"] not in ("closed", "open"):
             raise ValueError(f"unknown loop {traffic['loop']!r}")
         self._frames = frames
         self._kind = traffic["replay"]
+        self.rate = (rate_of(frames, traffic) if traffic["loop"] == "open"
+                     else None)
+        self.clock = clock or Clock()
+        self.first = first
+        self.lags = []
+        self._t0 = None
         self._stop = threading.Event()
+        self._go = threading.Event()        # started or stopped
         self._seq = None
         if frames.png_root is not None:
             from front_end_tpu_torch.io import kitti
             self._seq = kitti.KittiSequence(str(frames.png_root), "00")
 
+    def start(self, t0: float):
+        self._t0 = t0
+        self._go.set()
+
+    def due(self, k: int) -> float:
+        return self._t0 + (k - self.first) / self.rate
+
+    def due_by(self, t: float) -> int:
+        """How many frames, from frame 0, are due at time t."""
+        return self.first + math.floor((t - self._t0) * self.rate) + 1
+
     def stop(self):
         self._stop.set()
+        self._go.set()
 
     def __iter__(self):
         n = len(self._frames.lefts)
-        for i in replay(n, self._kind):
+        for k, i in itertools.islice(enumerate(replay(n, self._kind)),
+                                     self.first, None):
+            if self.rate is not None:
+                self._go.wait()
+                if not self._stop.is_set():
+                    self.clock.sleep_until(self.due(k), self._stop)
             if self._stop.is_set():
                 return
+            if self.rate is not None:
+                self.lags.append(self.clock.now() - self.due(k))
             if self._seq is not None:
                 yield self._seq[i]
             else:

@@ -1,79 +1,44 @@
-"""The system under test: the port's entry points, built from a
-configuration file.  The only module of the harness that imports the
-port (`front_end_tpu_torch`); the per-layer readers name the port's
-functions they wrap by module path."""
+"""The system under test: the port's step that a configuration's `entry`
+names (`vobench/entries/<entry>.py`, found by name), built from the
+configuration file.  With the entry files, the only modules of the
+harness that import the port (`front_end_tpu_torch`); the per-layer
+readers name the port's functions they wrap by module path."""
 from __future__ import annotations
 
 import time
+from pathlib import Path
 
 import torch
 
-from front_end_tpu_torch.geometry.camera import StereoRig
 from front_end_tpu_torch.io.feed import DeviceFeed
-from front_end_tpu_torch.ops import grid
 from front_end_tpu_torch.ops.kernels import _build
-from front_end_tpu_torch.pipeline import vo, window_vo
-
-# per-frame device scalars the check reads once the window has closed
-VO_FIELDS = ("motion_ok", "n_detect_l", "n_detect_r", "n_stereo",
-             "n_tracks", "n_inliers")
-WINDOW_FIELDS = ("n_tracked", "ba_ran")
-
-
-def make_rig(rig: dict) -> StereoRig:
-    return StereoRig.create(fx=rig["fx"], fy=rig["fy"], cx=rig["cx"],
-                            cy=rig["cy"], baseline=rig["baseline"],
-                            width=rig["width"], height=rig["height"])
-
-
-def vo_config(spec: dict) -> vo.VOConfig:
-    kw = dict(spec)
-    return vo.VOConfig(grid=grid.GridConfig(**kw.pop("grid")), **kw)
+from vobench import check, spec
+from vobench.entries._config import make_rig, vo_config  # noqa: F401
 
 
 class Program:
-    """One deployment's step: `vo_step` (entry `vo`) or `window_vo_step`
-    (entry `window`), called through its module so that wrappers of the
-    module's functions see every call."""
+    """One deployment's step, from the entry its configuration names."""
 
-    def __init__(self, config: dict, device):
+    def __init__(self, config: dict, device, root: Path = spec.ROOT):
         self.device = torch.device(device)
-        self.rig = make_rig(config["rig"])
         self.entry = config["entry"]
-        cfg = vo_config(config["vo"])
-        if self.entry == "window":
-            w = dict(config["window"])
-            self.cfg = window_vo.WindowVOConfig.create(
-                cfg, window=w.pop("window"), capacity=w.pop("capacity"), **w)
-            self.fields = VO_FIELDS + WINDOW_FIELDS
-        elif self.entry == "vo":
-            self.cfg = cfg
-            self.fields = VO_FIELDS
-        else:
-            raise ValueError(f"unknown entry {self.entry!r}")
+        self._mod = spec.load_entry(self.entry, root)
+        self.rig, self.cfg = self._mod.setup(config)
+        self.fields = check.fields(self._mod)
 
     def init_state(self, seed: int):
-        mod = window_vo if self.entry == "window" else vo
-        return mod.init_state(self.rig, self.cfg, seed=seed,
-                              device=self.device)
+        return self._mod.init_state(self.rig, self.cfg, seed, self.device)
 
     def step(self, state, left, right):
-        if self.entry == "window":
-            return window_vo.window_vo_step(state, left, right, self.rig,
-                                            self.cfg)
-        return vo.vo_step(state, left, right, self.rig, self.cfg)
+        return self._mod.step(state, left, right, self.rig, self.cfg)
 
     def frame(self, out):
-        """The frame-to-frame outputs (the refined pose on `window`)."""
-        return out.frame if self.entry == "window" else out
+        """The frame-to-frame outputs (`pose`, `motion_ok`)."""
+        return self._mod.frame(out)
 
     def record(self, out) -> list:
-        """This frame's scalars, as device tensors (no copy)."""
-        f = self.frame(out)
-        vals = [getattr(f, k) for k in VO_FIELDS]
-        if self.entry == "window":
-            vals += [getattr(out, k) for k in WINDOW_FIELDS]
-        return vals
+        """This frame's compared scalars, as device tensors (no copy)."""
+        return check.scalars(self._mod, out)
 
     def feed(self, source):
         """The port's feed at its default depth, as `cli vo` builds it."""

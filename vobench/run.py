@@ -4,21 +4,28 @@
 
 Set-up renders the cell's frames on the card from the seed, writes the
 png cell's files once, builds the port's step and warms up the shapes
-the cell uses.  The window is a closed loop: the next frame is requested
-from the source (through the port's `DeviceFeed`) once the previous
-frame's pose has reached the host.  A frame fails if its step raises,
+the cell uses (unpaced, in either loop).  In a closed loop the next
+frame is requested from the source (through the port's `DeviceFeed`)
+once the previous frame's pose has reached the host, and a frame's time
+runs from that request.  In an open loop the source hands frame k to the
+feed at its due time, `rate` frames a second from the window's start;
+every frame due inside the window is stepped, late ones too, and a
+frame's time runs from its due time, so a stall delays the frames behind
+it.  A frame fails if its step raises,
 its pose is not finite, or (after the first frame) `motion_ok` is
 false.  Once the window has closed the peak memory is read, the
 program's state is freed and the plain reference steps over the window's
 first frames; `correct` holds if every number compared is within its
 limit.  With `--trace 1` the first `PROFILE_FRAMES` frames of the window
-run under `torch.profiler` and the rest with the per-layer readers'
-wrappers; the line then carries the per-layer metrics instead of the
-end-to-end ones.
+run under `torch.profiler` (in an open loop each step marked, so that
+the card's idle time is read inside the frames and not in the wait for
+the next due one) and the rest with the per-layer readers' wrappers; the
+line then carries the per-layer metrics instead of the end-to-end ones.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -37,6 +44,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "front_end_tpu")
 DRAIN_LIMIT = 64        # frames read off the feed after the window closes
 WARMUP_FRAMES = 8       # frames stepped at set-up, through the cell's feed
 PROFILE_FRAMES = 20     # frames of a traced window under torch.profiler
+GRACE_S = 60.0          # an open window's wait for its late frames
 CHECK_FRAMES = 160      # frames of the window compared with the reference;
                         # the configurations' limits were read at this count
 
@@ -46,7 +54,8 @@ class Window:
     """What the timed loop recorded."""
     seconds: float
     setup_s: float = 0.0
-    latencies: list = field(default_factory=list)   # s, request -> pose
+    latencies: list = field(default_factory=list)   # s, request (open
+                                                    # loop: due) -> pose
     poses: list = field(default_factory=list)       # host (4, 4) float32
     pixels: list = field(default_factory=list)      # fed pairs' checksums
     scalars: list = field(default_factory=list)     # per checked frame
@@ -57,6 +66,9 @@ class Window:
     spans: dict = field(default_factory=dict)       # traced: s per call
     span_frames: int = 0        # frames timed with the wrappers on
     profiler: tuple | None = None   # traced: (stopped profiler, frames)
+    rate: float | None = None   # an open loop's frames a second
+    lags: list = field(default_factory=list)        # s, hand-off - due
+    backlogs: list = field(default_factory=list)    # frames due, not done
 
     @property
     def completed(self) -> int:
@@ -99,8 +111,9 @@ def _drain(feed, source):
 
 
 def warm_up(prog, frames, traffic, seed):
-    """The cell's own shapes, through the cell's own source and feed."""
-    source = frames_mod.Source(frames, traffic)
+    """The cell's own shapes, through the cell's own source and feed,
+    unpaced: an open loop's warm-up takes its frames as a closed one."""
+    source = frames_mod.Source(frames, dict(traffic, loop="closed"))
     feed = prog.feed(source)
     state = prog.init_state(frames_mod.seed_of(seed))
     for _ in range(WARMUP_FRAMES):
@@ -113,18 +126,21 @@ def warm_up(prog, frames, traffic, seed):
 
 
 def run_window(prog, frames, traffic, seed, seconds, readers=None,
-               max_frames=None, check_frames=None) -> Window:
-    """The timed closed loop.  `readers`: the per-layer readers of a
-    traced run, whose wrappers go on after the profiled frames (the
-    stopped profiler is read once the window has closed).  `max_frames`
-    ends the loop after that many frames (the calibration's untimed
-    runs).  The first `check_frames` frames (default `CHECK_FRAMES`)
-    keep their pose, their scalars and a checksum of the pair fed to the
-    step, for the comparison after the window."""
+               max_frames=None, check_frames=None, clock=None) -> Window:
+    """The timed loop, closed or open as the traffic says.  `readers`:
+    the per-layer readers of a traced run, whose wrappers go on after the
+    profiled frames (the stopped profiler is read once the window has
+    closed).  `max_frames` ends the loop after that many frames (the
+    calibration's untimed runs).  The first `check_frames` frames
+    (default `CHECK_FRAMES`) keep their pose, their scalars and a
+    checksum of the pair fed to the step, for the comparison after the
+    window.  `clock`: the host's clock (`frames.Clock`), or a test's."""
     w = Window(seconds=seconds)
+    clock = clock or frames_mod.Clock()
     check_frames = CHECK_FRAMES if check_frames is None else check_frames
     weights = check.pixel_weights(frames.lefts.shape[1:], seed, prog.device)
-    source = frames_mod.Source(frames, traffic)
+    source = frames_mod.Source(frames, traffic, clock)
+    w.rate = source.rate
     feed = prog.feed(source)
     state = prog.init_state(frames_mod.seed_of(seed))
     traced = readers is not None
@@ -139,12 +155,22 @@ def run_window(prog, frames, traffic, seed, seconds, readers=None,
         prof.start()
         tag = torch.autograd.profiler.record_function(trace.WINDOW_TAG)
         tag.__enter__()
-    t0 = time.perf_counter()
+    t0 = clock.now()
     t_end = t0 + seconds
+    source.start(t0)
+    # an open window steps every frame due inside it, however late
+    n_due = math.ceil(seconds * w.rate) if w.rate else None
     k = 0
     while True:
-        t_req = time.perf_counter()
-        if t_req >= t_end or k == max_frames:
+        t_req = clock.now()
+        if k == max_frames or (t_req >= t_end if n_due is None
+                               else k == n_due):
+            break
+        if n_due is not None and t_req > t_end + GRACE_S:
+            w.attempted += n_due - k        # due, and never stepped
+            w.failed += n_due - k
+            w.errors.append(f"frames {k}-{n_due - 1} not stepped "
+                            f"{GRACE_S:.0f} s past the window's close")
             break
         if traced and k == n_prof:
             tag.__exit__(None, None, None)
@@ -155,17 +181,31 @@ def run_window(prog, frames, traffic, seed, seconds, readers=None,
                     module, fn, sync = mod.WRAP
                     spans.wrap(name, module, fn,
                                sync and prog.device.type == "cuda")
-            t_req = time.perf_counter()
+            if n_due is not None:   # stopping the profiler delays no frame:
+                due = source.due(k)     # the schedule resumes at frame k
+                _drain(feed, source)
+                w.lags = source.lags[:k]
+                source = frames_mod.Source(frames, traffic, clock, first=k)
+                feed = prog.feed(source)
+                source.start(max(clock.now(), due))
+                t_end += source.due(k) - due
+            t_req = clock.now()
         left, right = next(feed)
-        t_got = time.perf_counter()
+        t_got = clock.now()
         if len(w.pixels) < check_frames:
             w.pixels.append(check.pixel_sums(weights, left, right))
+        # an open loop's profiled frames mark their steps, the stretches in
+        # which the card's idle time is a frame's (`trace.Profile.idle`)
+        active = (torch.autograd.profiler.record_function(trace.FRAME_TAG)
+                  if prof is not None and n_due is not None
+                  else contextlib.nullcontext())
         try:
-            new_state, out = prog.step(state, left, right)
-            pose = prog.frame(out).pose.cpu()
+            with active:
+                new_state, out = prog.step(state, left, right)
+                pose = prog.frame(out).pose.cpu()
         except Exception:       # a frame that raises fails; the loop goes on
-            t_done = time.perf_counter()
-            if t_done > t_end:
+            t_done = clock.now()
+            if t_done > t_end and n_due is None:
                 break
             w.attempted += 1
             w.failed += 1
@@ -176,12 +216,16 @@ def run_window(prog, frames, traffic, seed, seconds, readers=None,
                 w.scalars.append([nan] * len(prog.fields))
             k += 1
             continue
-        t_done = time.perf_counter()
-        if t_done > t_end:
+        t_done = clock.now()
+        if t_done > t_end and n_due is None:
             break
         state = new_state
         w.attempted += 1
-        w.latencies.append(t_done - t_req)
+        if n_due is None:
+            w.latencies.append(t_done - t_req)
+        else:
+            w.latencies.append(t_done - source.due(k))
+            w.backlogs.append(max(0, source.due_by(t_done) - (k + 1)))
         w.oks.append(prog.frame(out).motion_ok)
         if not bool(torch.isfinite(pose).all()):
             w.failed += 1
@@ -191,6 +235,10 @@ def run_window(prog, frames, traffic, seed, seconds, readers=None,
             w.scalars.append(prog.record(out))
         if traced and k >= n_prof:
             spans.add("feed_wait_ms", t_got - t_req)
+            spans.add("frame_s", w.latencies[-1])
+            if n_due is not None:   # from the hand-off, or a later request
+                handed = source.due(k) + source.lags[k - source.first]
+                spans.add("handoff_ms", t_got - max(handed, t_req))
         k += 1
     if prof is not None:        # the window closed inside the profiled part
         tag.__exit__(None, None, None)
@@ -198,6 +246,7 @@ def run_window(prog, frames, traffic, seed, seconds, readers=None,
         w.profiler = (prof, k)
     spans.restore()
     _drain(feed, source)
+    w.lags += source.lags[:w.attempted - len(w.lags)]
     w.spans = dict(spans.times)
     w.span_frames = max(0, k - n_prof)
     # motion_ok false after the first frame fails the frame
@@ -218,15 +267,16 @@ def run_window(prog, frames, traffic, seed, seconds, readers=None,
     return w
 
 
-def reference_run(frames, traffic, seed, config, device, m: int):
+def reference_run(frames, traffic, seed, config, device, m: int,
+                  root=spec.ROOT):
     """The plain reference over the first m frames of the replay."""
     order = frames_mod.order(len(frames.lefts), traffic["replay"], m)
-    return check.Reference(config, device).run(
+    return check.Reference(config, device, root).run(
         frames.lefts, frames.rights, order, frames_mod.seed_of(seed))
 
 
 def compare(prog, window: Window, frames, traffic, seed, config,
-            device) -> dict:
+            device, root=spec.ROOT) -> dict:
     """The numbers compared: the window's first frames against the
     reference over the same frames."""
     m = len(window.poses)
@@ -234,7 +284,7 @@ def compare(prog, window: Window, frames, traffic, seed, config,
         return {k: math.inf for k in config["check"]}
     fields = {k: window.scalars[:, j] for j, k in enumerate(prog.fields)}
     ref_poses, ref_vals = reference_run(frames, traffic, seed, config,
-                                        device, m)
+                                        device, m, root)
     numbers = check.gaps(window.poses, fields, ref_poses, ref_vals)
     numbers["pixels_mismatch"] = check.pixels_mismatch(
         window.pixels, frames.lefts, frames.rights,
@@ -255,6 +305,16 @@ def notes(window: Window, frames, traffic) -> list[str]:
                    f"/ {1e3 * q3:.3f}, max "
                    f"{1e3 * max(window.latencies):.3f}, "
                    f"{window.completed} frames")
+    if window.rate and window.lags:
+        out.append(f"open loop at {window.rate:g} frames/s: the source "
+                   f"handed {len(window.lags)} frames to the feed a median "
+                   f"{1e3 * stats.percentile(window.lags, 50):.3f} ms and at "
+                   f"most {1e3 * max(window.lags):.3f} ms after their due "
+                   f"time")
+    if window.backlogs:
+        out.append(f"backlog (frames due and not yet done as a pose "
+                   f"landed): at most {max(window.backlogs)}, "
+                   f"{window.backlogs[-1]} at the last frame")
     if len(window.oks):
         out.append(f"tracking held (motion_ok) on {window.oks.mean():.2%} "
                    f"of {len(window.oks)} frames")
@@ -296,7 +356,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     readers = ({m["name"]: spec.load_layer(m["name"], cell.root)
                 for m in cell.per_layer} if traced else None)
     with program_mod.BuildClock() as builds:
-        prog = program_cls(cell.config, device)
+        prog = program_cls(cell.config, device, root=cell.root)
         warm_up(prog, frames, cell.traffic, seed)
     if cuda:
         torch.cuda.synchronize()
@@ -319,7 +379,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     numbers = compare(prog, window, frames, cell.traffic, seed, cell.config,
-                      device)
+                      device, cell.root)
     correct, table = check.judge(numbers, cell.config["check"])
     lines = [setup_note] + notes(window, frames, cell.traffic)
     lines.append(f"reference over {len(window.poses)} frames: "

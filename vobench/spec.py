@@ -1,6 +1,7 @@
 """Find a cell's files by name: `BENCHMARK.json` at the checkout's root,
-the cell's configuration and traffic mix, and the per-layer readers that
-apply to it.  Nothing here knows a particular cell."""
+the cell's configuration and traffic mix, the step its configuration's
+`entry` names (the port's and the plain reference's), and the per-layer
+readers that apply to it.  Nothing here knows a particular cell."""
 from __future__ import annotations
 
 import importlib.util
@@ -29,11 +30,30 @@ def end_to_end_path(metric: str, root: Path = ROOT) -> Path:
     return root / "vobench" / "end_to_end" / f"{metric}.py"
 
 
+def entry_path(entry: str, root: Path = ROOT) -> Path:
+    return root / "vobench" / "entries" / f"{entry}.py"
+
+
+def reference_entry_path(entry: str, root: Path = ROOT) -> Path:
+    return root / "vobench" / "reference" / "entries" / f"{entry}.py"
+
+
 def _load_module(kind: str, name: str, path: Path) -> ModuleType:
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} {name!r}: {path} is missing")
     spec = importlib.util.spec_from_file_location(
         f"vobench.{kind}.{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def _load_checked(kind: str, name: str, path: Path, attrs: tuple,
+                  what: str) -> ModuleType:
+    mod = _load_module(kind, name, path)
+    for attr in attrs:
+        if not hasattr(mod, attr):
+            raise ValueError(f"{path}: {what} needs {attr}")
     return mod
 
 
@@ -48,12 +68,31 @@ def load_layer(metric: str, root: Path = ROOT) -> ModuleType:
     A reader has `LAYER`, `UNIT`, `WRAP` (None, or the dotted module, the
     function name and whether to synchronize the device around each call)
     and `read(trace) -> float | None`."""
-    path = layer_path(metric, root)
-    mod = _load_module("layers", metric, path)
-    for attr in ("LAYER", "UNIT", "WRAP", "read"):
-        if not hasattr(mod, attr):
-            raise ValueError(f"{path}: a reader needs {attr}")
-    return mod
+    return _load_checked("layers", metric, layer_path(metric, root),
+                         ("LAYER", "UNIT", "WRAP", "read"), "a reader")
+
+
+ENTRY = ("EXTRA", "setup", "init_state", "step", "frame", "extras")
+
+
+def load_entry(entry: str, root: Path = ROOT) -> ModuleType:
+    """The port's step of one entry, `vobench/entries/<entry>.py` (it may
+    import the port).  An entry, here and in the reference, has `EXTRA`
+    (the names of the scalars a frame adds to its counts and inliers for
+    the check), `setup(config) -> (rig, cfg)`, `init_state(rig, cfg, seed,
+    device)`, `step(state, left, right, rig, cfg) -> (state, out)`,
+    `frame(out)` (the outputs with `pose`, `motion_ok`, the counts and
+    `n_inliers`) and `extras(out)` (the `EXTRA` as device tensors)."""
+    return _load_checked("entries", entry, entry_path(entry, root), ENTRY,
+                         "an entry")
+
+
+def load_reference_entry(entry: str, root: Path = ROOT) -> ModuleType:
+    """The plain step of one entry, `vobench/reference/entries/<entry>.py`
+    (it imports neither the port nor JAX), as `load_entry` describes."""
+    return _load_checked("reference.entries", entry,
+                         reference_entry_path(entry, root), ENTRY,
+                         "a reference entry")
 
 
 @dataclass(frozen=True)
@@ -64,7 +103,7 @@ class Cell:
     chips: int
     end_to_end: tuple       # the metric entries this cell reports
     per_layer: tuple
-    root: Path = ROOT       # where its readers are found
+    root: Path = ROOT       # where its entries and readers are found
 
 
 def _applies(metric: dict, cell: str) -> bool:

@@ -9,7 +9,7 @@ from vobench import run
 from vobench.program import Program
 
 CELLS = ["kitti00-vo-brief.replay-mem", "euroc-mh01-window-surfext.replay-mem",
-         "kitti00-vo-brief.replay-png"]
+         "kitti00-vo-brief.replay-png", "euroc-mh01-window-surfext.camera-rate"]
 
 
 class StateUnchanged(Program):

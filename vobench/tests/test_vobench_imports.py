@@ -27,14 +27,21 @@ def test_harness_loads_no_jax():
                    "from vobench import spec\n"
                    "[spec.load_layer(m['name']) for m in "
                    "spec.load_json(spec.ROOT / 'BENCHMARK.json')"
-                   "['per_layer']]")
+                   "['per_layer']]\n"
+                   "[spec.load_entry(p.stem) for p in "
+                   "(spec.ROOT / 'vobench/entries').glob('[!_]*.py')]")
     assert not tops & JAX
     assert "front_end_tpu_torch" in tops        # the port, loaded whole
 
 
 def test_reference_loads_neither_jax_nor_the_port():
-    tops = _loaded("import vobench.reference.vo, "
-                   "vobench.reference.window_vo, vobench.check")
+    """Every reference entry, found by name as the check finds it."""
+    entries = sorted(p.stem for p in
+                     (ROOT / "vobench/reference/entries").glob("[!_]*.py"))
+    assert {"vo", "window"} <= set(entries)
+    tops = _loaded("import vobench.check\n"
+                   "from vobench import spec\n"
+                   f"[spec.load_reference_entry(e) for e in {entries!r}]")
     assert not tops & (JAX | {"front_end_tpu_torch"})
 
 

@@ -22,6 +22,10 @@ def test_every_cell_resolves():
         cell = spec.load_cell(w["name"])
         assert cell.config["name"] == w["config"]
         assert cell.traffic["source"] in ("mem", "png")
+        assert cell.traffic["loop"] in ("closed", "open")
+        entry = cell.config["entry"]
+        assert spec.entry_path(entry).is_file(), entry
+        assert spec.reference_entry_path(entry).is_file(), entry
         for key in ("rig", "camera_hz", "entry", "vo", "scene", "motion",
                     "reduced", "assumed", "check"):
             assert key in cell.config, (w["name"], key)
@@ -43,6 +47,9 @@ def test_metrics_name_real_cells_and_readers():
         mod = spec.load_layer(m["name"])
         assert mod.UNIT == m["unit"] and mod.LAYER == m["layer"]
         assert m["moves"] in {e["name"] for e in b["end_to_end"]}
+        for cell in m.get("workloads", cells):  # each reports what it moves
+            reported = {e["name"] for e in spec.load_cell(cell).end_to_end}
+            assert m["moves"] in reported, (m["name"], cell)
     for m in b["end_to_end"]:
         assert callable(spec.load_end_to_end(m["name"]).read)
     for name in cells:      # every cell reports setup_s, another end-to-end
@@ -85,8 +92,7 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path, tiny, clock):
     from conftest import shrink
     res = run.run_cell(shrink(cell), 5, 1.5, False, "cpu", clock)
     assert res.correct
-    assert set(res.metrics) == {"frames_per_s", "frame_ms_p95",
-                                   "setup_s"}
+    assert set(res.metrics) == {"frames_per_s", "setup_s"}
 
 
 def test_build_clock_times_only_builds_that_compile(tmp_path, monkeypatch):

@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from vobench import roofline, stats, trace
+from vobench import roofline, spec, stats, trace
 
 
 def test_percentile_is_numpys_linear():
@@ -20,6 +20,14 @@ def test_percentile_is_numpys_linear():
 def test_p95_of_a_known_ramp():
     # 1..200 ms: rank 0.95 * 199 = 189.05 -> 190.05
     assert stats.percentile(list(range(1, 201)), 95) == pytest.approx(190.05)
+
+
+def test_traced_tail_reads_the_frames_after_the_profiled_ones():
+    reader = spec.load_layer("frame_ms_p95.traced")
+    tr = trace.Trace(spans={"frame_s": [k / 1e3 for k in range(1, 201)]},
+                     frames=200, profile=None, profiled_frames=20, config={})
+    assert reader.read(tr) == pytest.approx(190.05)
+    assert reader.read(trace.Trace({}, 0, None, 20, {})) is None
 
 
 def test_union_and_gaps():
@@ -41,6 +49,29 @@ def test_idle_share_of_a_profile():
                                  pytest.approx(0.4)]
     assert ["aten::mul", pytest.approx(0.2)] in b["idle_gaps"]
     assert b["device_ops"][0] == ["k", pytest.approx(0.35)]
+
+
+def test_open_loop_idle_is_read_inside_the_frames():
+    """With frames marked (an open loop), idle time counts only while a
+    frame is in the loop's hands: the wait for the next due frame is
+    none of the card's idle time, in the breakdown and per frame."""
+    p = trace.Profile(device=[("k", "kernel", 0.1, 0.2),
+                              ("k", "kernel", 0.6, 0.65)],
+                      window=(0.0, 1.0), host=[(0.22, 0.28, "aten::mul")],
+                      active=[(0.05, 0.3), (0.55, 0.7)])
+    assert p.idle() == [pytest.approx(g) for g in
+                        [(0.05, 0.1), (0.2, 0.3), (0.55, 0.6), (0.65, 0.7)]]
+    b = trace.breakdown(p)
+    assert sum(v for _, v in b["idle_gaps"]) == pytest.approx(0.25)
+    assert ["aten::mul", pytest.approx(0.1)] in b["idle_gaps"]
+    tr = trace.Trace(spans={}, frames=0, profile=p, profiled_frames=2,
+                     config={})
+    assert spec.load_layer("frame_idle_ms").read(tr) == pytest.approx(125.0)
+    assert spec.load_layer("device_idle_pct").read(tr) == pytest.approx(85.0)
+    p.active = []               # a closed loop: the whole window
+    assert p.idle() == [pytest.approx(g) for g in
+                        [(0.0, 0.1), (0.2, 0.6), (0.65, 1.0)]]
+    assert spec.load_layer("frame_idle_ms").read(tr) is None
 
 
 def test_fast_grid_bytes():

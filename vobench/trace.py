@@ -23,8 +23,9 @@ import torch
 from vobench import stats
 
 WINDOW_TAG = "vobench.profiled_window"
+FRAME_TAG = "vobench.frame"     # an open loop's step, pair in hand -> pose
 # profiler bookkeeping that the trace lists among the host's operations
-NOT_HOST_WORK = {WINDOW_TAG, "Activity Buffer Request"}
+NOT_HOST_WORK = {WINDOW_TAG, FRAME_TAG, "Activity Buffer Request"}
 HOST_LOOKBACK = 64      # host operations searched back for a gap's label
 
 
@@ -66,10 +67,13 @@ class Spans:
 @dataclass
 class Profile:
     """One profiler window: device intervals (name, kind, start, end) in
-    seconds, the window itself, and the main thread's host operations."""
+    seconds, the window itself, the main thread's host operations and,
+    in an open loop, the frames' active intervals (`FRAME_TAG`: from the
+    pair in the loop's hand to the pose on the host)."""
     device: list = field(default_factory=list)
     window: tuple = (0.0, 0.0)
     host: list = field(default_factory=list)   # (start, end, name)
+    active: list = field(default_factory=list)  # (start, end)
 
     @property
     def window_s(self) -> float:
@@ -78,6 +82,15 @@ class Profile:
     def busy_s(self) -> float:
         return stats.union_length(((s, e) for _, _, s, e in self.device),
                                   *self.window)
+
+    def idle(self) -> list:
+        """The card's idle stretches (start, end): inside the frames'
+        active intervals where the profile has them (an open loop, whose
+        window is mostly the wait for the next due frame), else over the
+        whole window."""
+        dev = [(s, e) for _, _, s, e in self.device]
+        spans = sorted(self.active) or [self.window]
+        return [g for lo, hi in spans for g in stats.gaps(dev, lo, hi)]
 
     def kernels(self, pattern: str) -> list:
         rx = re.compile(pattern)
@@ -112,6 +125,10 @@ def read_profile(prof) -> Profile:
         s, en = _span(e)
         if en <= lo or s >= hi:
             continue
+        if e.name() == FRAME_TAG:
+            if e.device_type() != cuda and e.start_thread_id() == tid:
+                out.active.append((s, en))
+            continue
         if e.name() in NOT_HOST_WORK:   # on the device too: the annotation
             continue
         if e.device_type() == cuda:
@@ -128,14 +145,15 @@ def _short(name: str, n: int = 96) -> str:
 
 def breakdown(p: Profile, top: int = 10) -> dict:
     """The device operations that took most time, summed by name, and the
-    device's idle time summed by what the host was doing meanwhile: the
-    innermost host operation running at the middle of each gap."""
+    device's idle time (`Profile.idle`) summed by what the host was doing
+    meanwhile: the innermost host operation running at the middle of each
+    gap."""
     dev = defaultdict(float)
     for name, _, s, e in p.device:
         dev[_short(name)] += min(e, p.window[1]) - max(s, p.window[0])
     starts = [h[0] for h in p.host]
     idle = defaultdict(float)
-    for s, e in stats.gaps([(a, b) for _, _, a, b in p.device], *p.window):
+    for s, e in p.idle():
         mid = 0.5 * (s + e)
         label = "(python between operations)"
         i = bisect.bisect_right(starts, mid) - 1
